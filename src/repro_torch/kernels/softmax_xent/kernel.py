@@ -1,0 +1,136 @@
+"""Triton kernels for the fused softmax cross-entropy, forward and backward.
+
+Replace ``src/repro/kernels/softmax_xent/kernel.py::xent_fwd_2d`` and
+``::xent_bwd_2d`` (Pallas, TPU), which pad the class axis to 128 lanes and
+sweep (256, Vp) row blocks.
+
+Bound on Hopper: at the main path's shape (800 rows x 100 classes) both
+sweeps move well under a megabyte, so launch latency, not bandwidth or
+arithmetic, bounds them; the byte bound is one read of the logits and one
+write of the per-row results (forward) or of ``dx`` (backward).
+
+Design: one program per block of rows, the whole class axis of each row
+in registers (``BLOCK_V`` the next power of two, columns past ``V``
+masked to ``-inf`` on load, so V = 100 needs no padded copy). The forward
+reduces max, sum of exponentials and the label logit in f32 and writes
+``nll`` and ``lse``; the backward rebuilds the softmax from the saved
+``lse`` (no second reduction), subtracts the one-hot, scales by the
+per-row ``g`` and stores in the logits' dtype. Triton is imported and the
+kernels are compiled inside the launching functions only.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import build
+
+SOURCE = "src/repro_torch/kernels/softmax_xent/kernel.py"
+MAX_V = 16384
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@functools.cache
+def _kernels():
+    triton = build.import_triton()
+    import triton.language as tl
+
+    @triton.jit
+    def xent_fwd_kernel(x_ptr, lab_ptr, nll_ptr, lse_ptr, R, V, stride_x,
+                        BLOCK_R: tl.constexpr, BLOCK_V: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        cols = tl.arange(0, BLOCK_V)
+        rmask = rows < R
+        mask = rmask[:, None] & (cols[None, :] < V)
+        x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
+                    mask=mask, other=float("-inf")).to(tl.float32)
+        m = tl.max(x, axis=1)
+        m = tl.where(rmask, m, 0.0)
+        s = tl.sum(tl.exp(x - m[:, None]), axis=1)
+        lse = m + tl.log(s)
+        lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
+        ll = tl.sum(tl.where(cols[None, :] == lab[:, None], x, 0.0), axis=1)
+        tl.store(nll_ptr + rows, lse - ll, mask=rmask)
+        tl.store(lse_ptr + rows, lse, mask=rmask)
+
+    @triton.jit
+    def xent_bwd_kernel(x_ptr, lab_ptr, lse_ptr, g_ptr, dx_ptr, R, V,
+                        stride_x, stride_dx, BLOCK_R: tl.constexpr,
+                        BLOCK_V: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        cols = tl.arange(0, BLOCK_V)
+        rmask = rows < R
+        mask = rmask[:, None] & (cols[None, :] < V)
+        x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
+                    mask=mask, other=0.0).to(tl.float32)
+        lse = tl.load(lse_ptr + rows, mask=rmask, other=0.0)
+        g = tl.load(g_ptr + rows, mask=rmask, other=0.0)
+        lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
+        p = tl.exp(x - lse[:, None])
+        onehot = tl.where(cols[None, :] == lab[:, None], 1.0, 0.0)
+        d = (p - onehot) * g[:, None]
+        tl.store(dx_ptr + rows[:, None] * stride_dx + cols[None, :],
+                 d.to(dx_ptr.dtype.element_ty), mask=mask)
+
+    return triton, xent_fwd_kernel, xent_bwd_kernel
+
+
+def _blocks(v):
+    block_v = 1 << max(0, (v - 1).bit_length())
+    block_r = max(1, min(64, 4096 // block_v))
+    return block_r, block_v
+
+
+def _check(x, labels, *rows_f32):
+    if not (x.is_cuda and labels.device == x.device
+            and all(t.device == x.device for t in rows_f32)):
+        raise ValueError("softmax_xent kernel: all operands must be on one "
+                         "CUDA device")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"softmax_xent kernel takes {DTYPES}, got {x.dtype}")
+    if x.dim() != 2 or x.stride(1) != 1 or not 0 < x.shape[1] <= MAX_V:
+        raise ValueError(f"softmax_xent kernel: logits (R, V) with unit "
+                         f"column stride and V <= {MAX_V}; got "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    r = x.shape[0]
+    if labels.dtype != torch.int64 or labels.shape != (r,) \
+            or not labels.is_contiguous():
+        raise ValueError("labels must be contiguous int64 of shape (R,)")
+    for t in rows_f32:
+        if t.dtype != torch.float32 or t.shape != (r,) \
+                or not t.is_contiguous():
+            raise ValueError("lse and g must be contiguous float32 (R,)")
+
+
+def xent_fwd(x, labels):
+    """x: (R, V) logits on the card; labels: (R,) int64 valid class ids.
+    Returns per-row ``(nll, lse)``, both (R,) float32."""
+    _check(x, labels)
+    triton, fwd, _ = _kernels()
+    r, v = x.shape
+    nll = torch.empty(r, dtype=torch.float32, device=x.device)
+    lse = torch.empty_like(nll)
+    block_r, block_v = _blocks(v)
+    fwd[(triton.cdiv(r, block_r),)](x, labels, nll, lse, r, v, x.stride(0),
+                                    BLOCK_R=block_r, BLOCK_V=block_v,
+                                    num_warps=4)
+    LAUNCHES["xent_fwd"] += 1
+    return nll, lse
+
+
+def xent_bwd(x, labels, lse, g):
+    """``(softmax(x) - onehot) * g`` per row in ``x.dtype``; lse, g: (R,)
+    float32."""
+    _check(x, labels, lse, g)
+    triton, _, bwd = _kernels()
+    r, v = x.shape
+    dx = torch.empty((r, v), dtype=x.dtype, device=x.device)
+    block_r, block_v = _blocks(v)
+    bwd[(triton.cdiv(r, block_r),)](x, labels, lse, g, dx, r, v,
+                                    x.stride(0), dx.stride(0),
+                                    BLOCK_R=block_r, BLOCK_V=block_v,
+                                    num_warps=4)
+    LAUNCHES["xent_bwd"] += 1
+    return dx

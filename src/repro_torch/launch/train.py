@@ -1,0 +1,168 @@
+"""Training driver of the port, paper mode: the DCML rounds on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --paper \
+        --clients 8 --epochs 4 [--scheme sflv2] [--alpha 0.5] \
+        [--compute-dtype bfloat16] [--device cpu]
+
+SFPL (Algorithm 1 + 2, default) or the SFLv2 baseline on the synthetic
+CIFAR set with a split ResNet, one client per class (only positive
+labels). It runs on CUDA unless ``--device cpu`` is given, and raises when
+CUDA is absent and no device was asked for. ``--compute-dtype bfloat16``
+runs the mixed-precision path: bf16 convs and smashed data through the
+fused ``bn_act`` / ``softmax_xent`` kernels, f32 master params, BN
+statistics and loss. The collector's shuffle runs through the
+``collector_permute`` kernel on the card (``--no-kernel`` keeps the plain
+gather).
+
+Not in this slice: the mesh-sharded engine (``--sharded``, ``--pods``), the
+quantized wire (``--wire-dtype``), the fault knobs and checkpoints
+(``--ckpt``, ``--resume``, ``--drop-rate``, ``--straggler-*``), and LM mode.
+They raise ``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+LATER = {
+    "sharded": "slice C (the mesh collector on torch.distributed)",
+    "pods": "slice C (the mesh collector on torch.distributed)",
+    "wire_dtype": "slice C (the quantized wire format, kernels K5)",
+    "wire_dtype_bwd": "slice C (the quantized wire format, kernels K5)",
+    "ckpt": "slice D (fault tolerance and checkpoints)",
+    "resume": "slice D (fault tolerance and checkpoints)",
+    "drop_rate": "slice D (fault tolerance and checkpoints)",
+    "straggler_rate": "slice D (fault tolerance and checkpoints)",
+    "straggler_timeout": "slice D (fault tolerance and checkpoints)",
+}
+
+
+def make_compute_policy(compute_dtype, use_kernel=None):
+    """``ComputePolicy`` for ``--compute-dtype``, or ``None`` at float32
+    (the plain f32 graph). ``use_kernel=None``: fused kernels on when CUDA
+    is present."""
+    if compute_dtype in (None, "float32"):
+        return None
+    from repro_torch.models.common import ComputePolicy
+    return ComputePolicy(compute_dtype=compute_dtype,
+                         use_fused_kernels=use_kernel)
+
+
+def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
+                depth=8, width=8, hw=8, lr=0.05, scheme="sfpl", alpha=1.0,
+                compute_dtype="float32", log_every=1, seed=0, device=None,
+                **later):
+    """DCML rounds on synthetic CIFAR, one client per class. ``scheme``
+    picks SFPL or SFLv2; ``alpha`` is the collector's flush threshold;
+    ``use_kernel=None`` runs the collector shuffle through its kernel when
+    CUDA is present. Returns the per-epoch mean losses and prints the
+    non-IID accuracy at the end. Knobs of later slices (``LATER``) raise
+    ``NotImplementedError``."""
+    for knob, value in later.items():
+        if knob not in LATER:
+            raise TypeError(f"train_paper() got an unexpected keyword "
+                            f"argument {knob!r}")
+        if value:
+            raise NotImplementedError(
+                f"{knob} is not ported yet: it comes with {LATER[knob]}")
+    from repro_torch.core import engine as E
+    from repro_torch.core import round as RD
+    from repro_torch.core.evaluate import evaluate_split_noniid
+    from repro_torch.data.synthetic import (make_synthetic_cifar,
+                                            partition_positive_labels)
+    from repro_torch.device import resolve_device
+    from repro_torch.models import resnet as R
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.tree import to_device
+
+    dev = resolve_device(device)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    cfg = R.ResNetConfig(depth=depth, num_classes=num_clients, width=width)
+    gen = torch.Generator().manual_seed(seed)
+    tx, ty, ex, ey = make_synthetic_cifar(
+        gen, num_classes=num_clients, train_per_class=4 * batch_size,
+        test_per_class=2 * batch_size, hw=hw, device=dev)
+    data = partition_positive_labels(tx, ty, num_clients)
+    split = E.make_resnet_split(cfg, policy=make_compute_policy(
+        compute_dtype, use_kernel))
+    opt = sgd_momentum(lr, momentum=0.9, weight_decay=5e-4)
+    st = to_device(E.init_dcml_state(gen, lambda g: R.init(g, cfg),
+                                     num_clients, opt, opt), dev)
+    collector = RD.SINGLE.collector(num_clients, alpha=alpha,
+                                    use_kernel=use_kernel)
+
+    t0 = time.time()
+    mean_losses = []
+    for ep in range(epochs):
+        if scheme == "sflv2":
+            st, losses = E.sflv2_epoch(gen, st, data, split, opt, opt,
+                                       num_clients=num_clients,
+                                       batch_size=batch_size, device=dev)
+        elif scheme == "sfpl":
+            st, losses = RD.sfpl_round(gen, st, data, split, opt, opt,
+                                       num_clients=num_clients,
+                                       batch_size=batch_size,
+                                       collector=collector, device=dev)
+        else:
+            raise ValueError(f"unknown scheme {scheme!r}")
+        mean_losses.append(float(losses.float().mean()))
+        if ep % log_every == 0 or ep == epochs - 1:
+            print(f"epoch {ep:3d} loss {mean_losses[-1]:.4f} "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+    rep = evaluate_split_noniid(st, split, ex, ey, num_clients, rmsd=False,
+                                batch=2 * batch_size)
+    print(f"non-IID accuracy {rep['accuracy']:.1f}% "
+          f"(chance {100.0 / num_clients:.1f}%)")
+    return mean_losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paper", action="store_true",
+                    help="SFPL round engine on synthetic CIFAR (the only "
+                         "mode of this slice)")
+    ap.add_argument("--scheme", default="sfpl", choices=("sfpl", "sflv2"))
+    ap.add_argument("--alpha", type=float, default=1.0,
+                    help="SFPL collector accumulation threshold")
+    ap.add_argument("--compute-dtype", dest="compute_dtype",
+                    default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--use-kernel", dest="use_kernel", action="store_true",
+                    default=None, help="force the collector kernel on "
+                    "(default: on when CUDA is present)")
+    ap.add_argument("--no-kernel", dest="use_kernel", action="store_false")
+    ap.add_argument("--clients", type=int, default=8)
+    ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--depth", type=int, default=8)
+    ap.add_argument("--width", type=int, default=8)
+    ap.add_argument("--hw", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without CUDA)")
+    for flag in ("--sharded", "--ckpt", "--resume"):
+        ap.add_argument(flag, default=None,
+                        **({"action": "store_true"} if flag == "--sharded"
+                           else {}))
+    for flag in ("--pods", "--wire-dtype", "--wire-dtype-bwd", "--drop-rate",
+                 "--straggler-rate", "--straggler-timeout"):
+        ap.add_argument(flag, default=None)
+    args = ap.parse_args(argv)
+    if not args.paper:
+        raise NotImplementedError("LM mode is not ported yet: it comes with "
+                                  "slice E (the LM family); pass --paper")
+    later = {k: getattr(args, k) for k in LATER}
+    losses = train_paper(num_clients=args.clients, epochs=args.epochs,
+                         batch_size=args.batch, use_kernel=args.use_kernel,
+                         depth=args.depth, width=args.width, hw=args.hw,
+                         lr=args.lr, scheme=args.scheme, alpha=args.alpha,
+                         compute_dtype=args.compute_dtype, seed=args.seed,
+                         device=args.device, **later)
+    print(f"first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,48 @@
+"""Parameter initializers with the JAX package's fan rules.
+
+Random draws come from an explicit ``torch.Generator``; the numbers differ
+from ``jax.random``'s, the distributions match. Shapes follow JAX's layout
+(``(kh, kw, in, out)`` for a conv kernel), so the fans are computed the same
+way; the layers transpose to their own storage layout afterwards.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _fans(shape, in_axis=-2, out_axis=-1):
+    if len(shape) < 1:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    receptive = 1
+    for i, s in enumerate(shape):
+        if i not in (in_axis % len(shape), out_axis % len(shape)):
+            receptive *= s
+    return shape[in_axis] * receptive, shape[out_axis] * receptive
+
+
+def _normal(gen, shape, std, dtype):
+    return (torch.randn(shape, generator=gen) * std).to(dtype)
+
+
+def lecun_normal(gen, shape, dtype=torch.float32, in_axis=-2, out_axis=-1):
+    fan_in, _ = _fans(shape, in_axis, out_axis)
+    return _normal(gen, shape, math.sqrt(1.0 / max(fan_in, 1)), dtype)
+
+
+def he_normal(gen, shape, dtype=torch.float32, in_axis=-2, out_axis=-1):
+    fan_in, _ = _fans(shape, in_axis, out_axis)
+    return _normal(gen, shape, math.sqrt(2.0 / max(fan_in, 1)), dtype)
+
+
+def zeros(gen, shape, dtype=torch.float32):
+    del gen
+    return torch.zeros(shape, dtype=dtype)
+
+
+def ones(gen, shape, dtype=torch.float32):
+    del gen
+    return torch.ones(shape, dtype=dtype)

@@ -1,0 +1,117 @@
+"""BatchNorm with explicit running statistics (RMSD / CMSD at inference).
+
+Running statistics live in a separate ``state`` dict, as in the JAX
+package, so the aggregation policies can treat them apart from the
+parameters. The running update is ``0.9 * old + 0.1 * batch`` with the
+*biased* batch variance plus a ``count`` leaf, computed by hand:
+``F.batch_norm``'s update uses the unbiased variance and the other
+momentum convention.
+
+Parameters may carry a leading client axis (``scale`` of shape (N, C)):
+the input is then client-stacked (N, B, ..., C) and every client is
+normalized with its own moments, the JAX package's ``vmap`` written out.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.nn.init import ones, zeros
+
+
+def _batch_moments(x, axes, valid):
+    """f32 (mean, var) over ``axes``; rows with ``valid == False`` carry no
+    weight (``valid`` is a ``(batch,)`` bool mask over axis 0)."""
+    x32 = x.float()
+    if valid is None:
+        var, mean = torch.var_mean(x32, dim=axes, correction=0)
+        return mean, var
+    w = valid.float().reshape((-1,) + (1,) * (x32.dim() - 1))
+    spatial = math.prod(x32.shape[i] for i in axes if i != 0)
+    cnt = torch.clamp_min(w.sum(), 1.0) * float(spatial)
+    mean = (x32 * w).sum(dim=axes) / cnt
+    var = (w * (x32 - mean).square()).sum(dim=axes) / cnt
+    return mean, var
+
+
+def batchnorm_init(gen, dim, *, dtype=torch.float32):
+    params = {"scale": ones(gen, (dim,), dtype),
+              "bias": zeros(gen, (dim,), dtype)}
+    state = {"mean": torch.zeros(dim), "var": torch.ones(dim),
+             "count": torch.zeros(())}
+    return params, state
+
+
+def _stats(state, x, *, training, momentum, use_running_stats, valid):
+    """(mean, var, new_state) for one BN call; the statistics stay in the
+    autograd graph, the new running state does not."""
+    stacked = state["mean"].dim() == 2
+    axes = tuple(range(1 if stacked else 0, x.dim() - 1))
+    if training:
+        mean, var = _batch_moments(x, axes, valid)
+        new_state = {
+            "mean": momentum * state["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * state["var"] + (1 - momentum) * var.detach(),
+            "count": state["count"] + 1.0,
+        }
+        return mean, var, new_state
+    rmsd = True if use_running_stats is None else use_running_stats
+    if rmsd:
+        return state["mean"], state["var"], state
+    mean, var = _batch_moments(x, axes, valid)     # CMSD: the test batch's
+    return mean, var, state
+
+
+def _per_channel(t, x):
+    """Broadcast a (C,) or client-stacked (N, C) vector against x."""
+    if t.dim() == 1:
+        return t
+    return t.reshape((t.shape[0],) + (1,) * (x.dim() - 2) + (t.shape[1],))
+
+
+def batchnorm_apply(params, state, x, *, training, momentum=0.9, eps=1e-5,
+                    use_running_stats=None, valid=None):
+    """Returns (y, new_state). Training normalizes with the batch
+    statistics and updates the running ones; inference uses the running
+    statistics (RMSD, the default) or the test batch's own (CMSD,
+    ``use_running_stats=False``). ``valid`` drops rows from the batch
+    statistics."""
+    mean, var, new_state = _stats(state, x, training=training,
+                                  momentum=momentum,
+                                  use_running_stats=use_running_stats,
+                                  valid=valid)
+    x32 = x.float()
+    y = (x32 - _per_channel(mean, x)) * _per_channel(
+        1.0 / torch.sqrt(var + eps), x)
+    y = y * _per_channel(params["scale"].float(), x) \
+        + _per_channel(params["bias"].float(), x)
+    return y.to(x.dtype), new_state
+
+
+def batchnorm_act_apply(params, state, x, *, training, relu=True,
+                        momentum=0.9, eps=1e-5, use_running_stats=None,
+                        use_kernel=False, valid=None):
+    """BatchNorm + optional ReLU with the elementwise tail fused.
+
+    Same statistics as :func:`batchnorm_apply`, but the per-channel
+    normalize/scale/shift is folded into one f32 affine
+    ``a = scale / sqrt(var + eps)``, ``b = bias - mean * a``, applied with
+    the ReLU in one sweep over ``x``: the ``bn_act`` kernel when
+    ``use_kernel`` (its wrapper runs the plain version for a CPU tensor),
+    else plain PyTorch. The fold rounds differently from the unfused form,
+    so the f32 parity path (``policy=None``) keeps :func:`batchnorm_apply`.
+    """
+    mean, var, new_state = _stats(state, x, training=training,
+                                  momentum=momentum,
+                                  use_running_stats=use_running_stats,
+                                  valid=valid)
+    a = params["scale"].float() / torch.sqrt(var + eps)
+    b = params["bias"].float() - mean * a
+    if use_kernel:
+        from repro_torch.kernels.bn_act import ops
+        return ops.bn_act(x, a, b, relu=relu), new_state
+    y32 = x.float() * _per_channel(a, x) + _per_channel(b, x)
+    if relu:
+        y32 = torch.clamp_min(y32, 0.0)
+    return y32.to(x.dtype), new_state

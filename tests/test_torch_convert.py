@@ -1,0 +1,65 @@
+"""numpy (JAX layout) -> torch -> numpy is bitwise for the engine's trees,
+and the port's own trees have the JAX trees' keys and shapes."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as JE
+from repro.models import resnet as JR
+from repro.optim import sgd_momentum as j_sgd
+from repro_torch.convert import from_jax_numpy, to_numpy
+from repro_torch.core import engine as TE
+from repro_torch.models import resnet as TR
+from repro_torch.optim import sgd_momentum as t_sgd
+
+
+@pytest.fixture(scope="module")
+def trees():
+    cfg = JR.ResNetConfig(depth=8, num_classes=4, width=8)
+    opt = j_sgd(0.05, momentum=0.9)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: JR.init(k, cfg))(jax.random.PRNGKey(1)))
+    return {
+        "init": {"params": params[0], "state": params[1]},
+        "dcml": JE.init_dcml_state(None, lambda k: params, 3, opt, opt),
+        "fl": JE.init_fl_state(None, lambda k: params, 3, opt),
+    }
+
+
+def _leaves_with_paths(tree):
+    return jax.tree_util.tree_flatten_with_path(tree)[0]
+
+
+@pytest.mark.parametrize("name", ["init", "dcml", "fl"])
+def test_round_trip_is_bitwise(trees, name):
+    tree = jax.tree_util.tree_map(np.asarray, trees[name])
+    back = to_numpy(from_jax_numpy(tree))
+    a, b = _leaves_with_paths(tree), _leaves_with_paths(back)
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, u), (_, v) in zip(a, b):
+        assert u.dtype == v.dtype and u.shape == v.shape, path
+        assert u.tobytes() == v.tobytes(), path
+
+
+def test_conv_kernels_become_oihw(trees):
+    t = from_jax_numpy(jax.tree_util.tree_map(np.asarray, trees["dcml"]))
+    hwio = np.asarray(trees["dcml"]["cp"]["conv1"]["w"])     # (N, 3, 3, 3, 8)
+    w = t["cp"]["conv1"]["w"]
+    assert tuple(w.shape) == (hwio.shape[0], 8, 3, 3, 3)
+    np.testing.assert_array_equal(w[1, 5, 2, 0, 1].item(), hwio[1, 0, 1, 2, 5])
+    assert tuple(t["copt"]["mu"]["conv1"]["w"].shape) == tuple(w.shape)
+    assert tuple(t["sp"]["fc"]["w"].shape) == (32, 4)          # dense kept
+
+
+def test_port_init_has_jax_tree_structure(trees):
+    cfg = TR.ResNetConfig(depth=8, num_classes=4, width=8)
+    opt = t_sgd(0.05, momentum=0.9)
+    st = TE.init_dcml_state(torch.Generator().manual_seed(0),
+                            lambda g: TR.init(g, cfg), 3, opt, opt)
+    ours = _leaves_with_paths(to_numpy(st))
+    theirs = _leaves_with_paths(jax.tree_util.tree_map(np.asarray,
+                                                       trees["dcml"]))
+    assert [p for p, _ in ours] == [p for p, _ in theirs]
+    for (path, u), (_, v) in zip(ours, theirs):
+        assert u.shape == v.shape and u.dtype == v.dtype, path

@@ -1,0 +1,74 @@
+"""The port stands alone: importing every module of ``repro_torch`` and
+running a one-step SFPL epoch loads neither ``jax`` nor ``repro``; and the
+entry points run on CUDA by default, raising when it is absent."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import torch
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+from repro_torch.core import engine as E
+from repro_torch.data import make_synthetic_cifar, partition_positive_labels
+from repro_torch.models import resnet as R
+from repro_torch.optim import sgd_momentum
+
+n, b = 2, 2
+cfg = R.ResNetConfig(depth=8, num_classes=n, width=4)
+g = torch.Generator().manual_seed(0)
+tx, ty, _, _ = make_synthetic_cifar(g, num_classes=n, train_per_class=b,
+                                    test_per_class=1, hw=8)
+data = partition_positive_labels(tx, ty, n)
+opt = sgd_momentum(0.05, momentum=0.9)
+st = E.init_dcml_state(g, lambda k: R.init(k, cfg), n, opt, opt)
+st, losses = E.sfpl_epoch(g, st, data, E.make_resnet_split(cfg), opt, opt,
+                          num_clients=n, batch_size=b, device="cpu")
+assert losses.shape == (1,) and bool(torch.isfinite(losses).all())
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("MODULES", len(names))
+print("LEAKED", leaked)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("src"))
+    res = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LEAKED []" in res.stdout, res.stdout
+    n_modules = int(res.stdout.split("MODULES ")[1].split()[0])
+    assert n_modules >= 30, res.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    from repro_torch.core import engine as E
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.train import train_paper
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for call in (lambda: resolve_device(None),
+                 lambda: train_paper(epochs=1),
+                 lambda: E.sfpl_epoch(None, {}, {}, None, None, None,
+                                      num_clients=1, batch_size=1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_later_slice_knobs_raise_not_implemented():
+    from repro_torch.launch.train import main
+    for argv in (["--paper", "--sharded"], ["--paper", "--wire-dtype", "int8"],
+                 ["--paper", "--ckpt", "s.npz"], ["--paper", "--drop-rate",
+                                                  "0.2"], []):
+        with pytest.raises(NotImplementedError, match="slice"):
+            main(argv + ["--device", "cpu", "--epochs", "1"])
