@@ -33,8 +33,10 @@ class SplitModel:
     # (cparams, cstate, x, training, rmsd) -> (smashed, new_cstate); takes
     # one client's trees, or client-stacked trees with stacked x
     client_fwd: Callable
-    # (sparams, sstate, A, y, training, rmsd[, valid]) ->
-    #     (loss, (new_sstate, logits))
+    # (sparams, sstate, A, y, training, rmsd[, valid][, reduce]) ->
+    #     (loss, (new_sstate, logits)); ``reduce`` (a differentiable sum
+    #     over ranks) takes the BN statistics and the loss's valid count
+    #     over a pool split across ranks
     server_loss: Callable
     # (params, state, x, y, training, rmsd) -> (loss, (new_state, logits))
     full_loss: Callable
@@ -61,7 +63,8 @@ def make_resnet_split(cfg, policy=None):
         return R.client_apply(cp, cs, x, training=training, rmsd=rmsd,
                               policy=policy)
 
-    def server_loss(sp, ss, a, y, training=True, rmsd=None, valid=None):
+    def server_loss(sp, ss, a, y, training=True, rmsd=None, valid=None,
+                    reduce=None):
         if valid is not None:
             # absent clients' rows ride along but are inert: activations
             # zeroed, labels ignored, rows left out of every BN statistic
@@ -71,8 +74,9 @@ def make_resnet_split(cfg, policy=None):
             y = torch.where(valid, y.long(), torch.full(
                 (), IGNORE_LABEL, dtype=torch.long, device=y.device))
         logits, nss = R.server_apply(sp, ss, a, cfg, training=training,
-                                     rmsd=rmsd, policy=policy, valid=valid)
-        return loss_fn(logits, y), (nss, logits)
+                                     rmsd=rmsd, policy=policy, valid=valid,
+                                     reduce=reduce)
+        return loss_fn(logits, y, reduce=reduce), (nss, logits)
 
     def full_loss(p, s, x, y, training=True, rmsd=None):
         logits, ns = R.apply(p, s, x, cfg, training=training, rmsd=rmsd,

@@ -1,1 +1,1 @@
-"""Fused collector row gather (K1): ref / kernel / ops."""
+"""Collector row gathers: the shuffle (K1) and the route plan's bucket gathers (K4a, K4b): ref / kernel / ops."""

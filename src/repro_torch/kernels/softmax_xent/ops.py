@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.softmax_xent import kernel, ref
+from repro_torch.models.common import valid_count
 
 IGNORE_LABEL = -100
 
@@ -31,10 +32,11 @@ class _XentRows(torch.autograd.Function):
         return dx, None
 
 
-def softmax_xent(logits, labels, *, ignore=IGNORE_LABEL):
+def softmax_xent(logits, labels, *, ignore=IGNORE_LABEL, reduce=None):
     """Fused drop-in for ``softmax_cross_entropy``: logits (..., V) in any
     float dtype, labels (...,) int. Mean nll over non-ignored rows, in f32
-    (``max(#valid, 1)`` in the denominator, so all-ignored gives 0)."""
+    (``max(#valid, 1)`` in the denominator, so all-ignored gives 0);
+    ``reduce`` counts the valid rows of every rank, as there."""
     v = logits.shape[-1]
     x2 = logits.reshape(-1, v).contiguous()
     lab = labels.reshape(-1).long()
@@ -44,4 +46,4 @@ def softmax_xent(logits, labels, *, ignore=IGNORE_LABEL):
     nll = _XentRows.apply(x2, safe.contiguous())
     nll = torch.where(valid, nll, torch.zeros((), dtype=nll.dtype,
                                               device=nll.device))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / valid_count(valid, reduce)

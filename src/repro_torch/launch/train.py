@@ -1,8 +1,11 @@
-"""Training driver of the port, paper mode: the DCML rounds on one device.
+"""Training launcher of the port, paper mode: the DCML rounds.
 
     PYTHONPATH=src python -m repro_torch.launch.train --paper \
         --clients 8 --epochs 4 [--scheme sflv2] [--alpha 0.5] \
         [--compute-dtype bfloat16] [--device cpu]
+    PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.train \
+        --paper --sharded [--collector uniform] [--wire-dtype int8] \
+        [--wire-dtype-bwd int8] --device cpu
 
 SFPL (Algorithm 1 + 2, default) or the SFLv2 baseline on the synthetic
 CIFAR set with a split ResNet, one client per class (only positive
@@ -14,23 +17,32 @@ statistics and loss. The collector's shuffle runs through the
 ``collector_permute`` kernel on the card (``--no-kernel`` keeps the plain
 gather).
 
-Not in this slice: the mesh-sharded engine (``--sharded``, ``--pods``), the
-quantized wire (``--wire-dtype``), the fault knobs and checkpoints
-(``--ckpt``, ``--resume``, ``--drop-rate``, ``--straggler-*``), and LM mode.
-They raise ``NotImplementedError`` naming the slice that brings them.
+``--sharded`` runs the SFPL epoch over the ranks of a process group
+(``torchrun``'s, or world size 1 without it): each rank holds a block of
+clients, the collector is one ``all_to_all`` per direction in
+``--collector {balanced,uniform}`` mode through the bucket kernels, and
+``--wire-dtype`` / ``--wire-dtype-bwd`` narrow the smashed rows and the
+routed-back gradient rows on the wire (int8/fp8 through the fused
+quantize kernels). gloo on the CPU, NCCL on the card (one rank per card).
+
+Not in this slice: the double-buffered collector (``--pipeline
+double_buffered``), sub-mesh routing (``--submesh``) and pods (``--pods``),
+sharded SFLv2, the fault knobs and checkpoints (``--ckpt``, ``--resume``,
+``--drop-rate``, ``--straggler-*``), and LM mode. They raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
+from repro_torch.core.round import C2
+
 LATER = {
-    "sharded": "slice C (the mesh collector on torch.distributed)",
-    "pods": "slice C (the mesh collector on torch.distributed)",
-    "wire_dtype": "slice C (the quantized wire format, kernels K5)",
-    "wire_dtype_bwd": "slice C (the quantized wire format, kernels K5)",
+    "pods": C2,
     "ckpt": "slice D (fault tolerance and checkpoints)",
     "resume": "slice D (fault tolerance and checkpoints)",
     "drop_rate": "slice D (fault tolerance and checkpoints)",
@@ -52,13 +64,18 @@ def make_compute_policy(compute_dtype, use_kernel=None):
 
 def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
                 depth=8, width=8, hw=8, lr=0.05, scheme="sfpl", alpha=1.0,
-                compute_dtype="float32", log_every=1, seed=0, device=None,
+                compute_dtype="float32", sharded=False, collector="balanced",
+                pipeline="sync", submesh=None, wire_dtype=None,
+                wire_dtype_bwd=None, log_every=1, seed=0, device=None,
                 **later):
     """DCML rounds on synthetic CIFAR, one client per class. ``scheme``
     picks SFPL or SFLv2; ``alpha`` is the collector's flush threshold;
-    ``use_kernel=None`` runs the collector shuffle through its kernel when
-    CUDA is present. Returns the per-epoch mean losses and prints the
-    non-IID accuracy at the end. Knobs of later slices (``LATER``) raise
+    ``use_kernel=None`` runs the collector's gathers through their kernels
+    when CUDA is present. ``sharded`` runs SFPL over the process group's
+    ranks with the ``collector`` mode and wire dtypes (see the module
+    docstring). Returns the per-epoch mean losses and prints the non-IID
+    accuracy at the end (rank 0 prints). Knobs of later slices
+    (``LATER``, ``pipeline="double_buffered"``, ``submesh``) raise
     ``NotImplementedError``."""
     for knob, value in later.items():
         if knob not in LATER:
@@ -67,7 +84,18 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
         if value:
             raise NotImplementedError(
                 f"{knob} is not ported yet: it comes with {LATER[knob]}")
+    if pipeline != "sync" or submesh:
+        raise NotImplementedError(
+            f"the {pipeline} collector pipeline and sub-mesh routing are "
+            f"not ported yet: they come with {C2}")
+    if sharded and scheme != "sfpl":
+        raise NotImplementedError(f"sharded {scheme} is not ported yet: it "
+                                  f"comes with {C2}")
+    if not sharded and (wire_dtype or wire_dtype_bwd):
+        raise ValueError("--wire-dtype applies to the sharded collector: "
+                         "add --sharded")
     from repro_torch.core import engine as E
+    from repro_torch.core import engine_dist as ED
     from repro_torch.core import round as RD
     from repro_torch.core.evaluate import evaluate_split_noniid
     from repro_torch.data.synthetic import (make_synthetic_cifar,
@@ -78,52 +106,93 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
     from repro_torch.tree import to_device
 
     dev = resolve_device(device)
-    if use_kernel is None:
-        use_kernel = dev.type == "cuda"
-    cfg = R.ResNetConfig(depth=depth, num_classes=num_clients, width=width)
-    gen = torch.Generator().manual_seed(seed)
-    tx, ty, ex, ey = make_synthetic_cifar(
-        gen, num_classes=num_clients, train_per_class=4 * batch_size,
-        test_per_class=2 * batch_size, hw=hw, device=dev)
-    data = partition_positive_labels(tx, ty, num_clients)
-    split = E.make_resnet_split(cfg, policy=make_compute_policy(
-        compute_dtype, use_kernel))
-    opt = sgd_momentum(lr, momentum=0.9, weight_decay=5e-4)
-    st = to_device(E.init_dcml_state(gen, lambda g: R.init(g, cfg),
-                                     num_clients, opt, opt), dev)
-    collector = RD.SINGLE.collector(num_clients, alpha=alpha,
-                                    use_kernel=use_kernel)
+    group, own_group = RD.SINGLE, False
+    if sharded:
+        import torch.distributed as dist
+        own_group = not dist.is_initialized()
+        group = ED.init_data_group(dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+    say = print if group.rank == 0 else (lambda *a, **k: None)
+    try:
+        if use_kernel is None:
+            use_kernel = dev.type == "cuda"
+        cfg = R.ResNetConfig(depth=depth, num_classes=num_clients,
+                             width=width)
+        gen = torch.Generator().manual_seed(seed)
+        tx, ty, ex, ey = make_synthetic_cifar(
+            gen, num_classes=num_clients, train_per_class=4 * batch_size,
+            test_per_class=2 * batch_size, hw=hw, device=dev)
+        data = partition_positive_labels(tx, ty, num_clients)
+        split = E.make_resnet_split(cfg, policy=make_compute_policy(
+            compute_dtype, use_kernel))
+        opt = sgd_momentum(lr, momentum=0.9, weight_decay=5e-4)
+        st = to_device(E.init_dcml_state(gen, lambda g: R.init(g, cfg),
+                                         num_clients, opt, opt), dev)
+        if sharded:
+            shards = ED.fit_shards(num_clients, batch_size, alpha=alpha,
+                                   collector_mode=collector,
+                                   max_shards=group.world,
+                                   wire_dtype=wire_dtype,
+                                   wire_dtype_bwd=wire_dtype_bwd)
+            if shards != group.world:
+                raise ValueError(
+                    f"{num_clients} clients x batch {batch_size} at alpha "
+                    f"{alpha} in {collector} mode split over at most "
+                    f"{shards} of the {group.world} ranks: run with "
+                    f"--nproc_per_node {shards}, or change --clients / "
+                    f"--alpha / --collector")
+            say(f"sharded SFPL: {group.world} rank(s), collector="
+                f"{collector}, alpha={alpha}, wire_dtype={wire_dtype}, "
+                f"wire_dtype_bwd={wire_dtype_bwd}", flush=True)
+            st = ED.shard_dcml_state(st, group)
+            data = ED.shard_client_data(data, group)
+        coll = RD.SINGLE.collector(num_clients, alpha=alpha,
+                                   use_kernel=use_kernel)
 
-    t0 = time.time()
-    mean_losses = []
-    for ep in range(epochs):
-        if scheme == "sflv2":
-            st, losses = E.sflv2_epoch(gen, st, data, split, opt, opt,
-                                       num_clients=num_clients,
-                                       batch_size=batch_size, device=dev)
-        elif scheme == "sfpl":
-            st, losses = RD.sfpl_round(gen, st, data, split, opt, opt,
-                                       num_clients=num_clients,
-                                       batch_size=batch_size,
-                                       collector=collector, device=dev)
-        else:
-            raise ValueError(f"unknown scheme {scheme!r}")
-        mean_losses.append(float(losses.float().mean()))
-        if ep % log_every == 0 or ep == epochs - 1:
-            print(f"epoch {ep:3d} loss {mean_losses[-1]:.4f} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
-    rep = evaluate_split_noniid(st, split, ex, ey, num_clients, rmsd=False,
-                                batch=2 * batch_size)
-    print(f"non-IID accuracy {rep['accuracy']:.1f}% "
-          f"(chance {100.0 / num_clients:.1f}%)")
-    return mean_losses
+        t0 = time.time()
+        mean_losses = []
+        for ep in range(epochs):
+            if sharded:
+                st, losses = ED.sfpl_epoch_sharded(
+                    gen, st, data, split, opt, opt, group=group,
+                    num_clients=num_clients, batch_size=batch_size,
+                    alpha=alpha, use_kernel=use_kernel,
+                    collector_mode=collector, wire_dtype=wire_dtype,
+                    wire_dtype_bwd=wire_dtype_bwd, device=dev)
+            elif scheme == "sflv2":
+                st, losses = E.sflv2_epoch(gen, st, data, split, opt, opt,
+                                           num_clients=num_clients,
+                                           batch_size=batch_size,
+                                           device=dev)
+            elif scheme == "sfpl":
+                st, losses = RD.sfpl_round(gen, st, data, split, opt, opt,
+                                           num_clients=num_clients,
+                                           batch_size=batch_size,
+                                           collector=coll, device=dev)
+            else:
+                raise ValueError(f"unknown scheme {scheme!r}")
+            mean_losses.append(float(losses.float().mean()))
+            if ep % log_every == 0 or ep == epochs - 1:
+                say(f"epoch {ep:3d} loss {mean_losses[-1]:.4f} "
+                    f"({time.time() - t0:.1f}s)", flush=True)
+        if sharded:
+            st = ED.gather_clients(st, group)
+        rep = evaluate_split_noniid(st, split, ex, ey, num_clients,
+                                    rmsd=False, batch=2 * batch_size)
+        say(f"non-IID accuracy {rep['accuracy']:.1f}% "
+            f"(chance {100.0 / num_clients:.1f}%)")
+        return mean_losses
+    finally:
+        if own_group:
+            ED.close_data_group()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper", action="store_true",
                     help="SFPL round engine on synthetic CIFAR (the only "
-                         "mode of this slice)")
+                         "mode ported so far)")
     ap.add_argument("--scheme", default="sfpl", choices=("sfpl", "sflv2"))
     ap.add_argument("--alpha", type=float, default=1.0,
                     help="SFPL collector accumulation threshold")
@@ -143,11 +212,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without CUDA)")
-    for flag in ("--sharded", "--ckpt", "--resume"):
-        ap.add_argument(flag, default=None,
-                        **({"action": "store_true"} if flag == "--sharded"
-                           else {}))
-    for flag in ("--pods", "--wire-dtype", "--wire-dtype-bwd", "--drop-rate",
+    ap.add_argument("--sharded", action="store_true",
+                    help="SFPL over the process group's ranks (torchrun)")
+    ap.add_argument("--collector", default="balanced",
+                    choices=("balanced", "uniform"),
+                    help="sharded collector mode")
+    ap.add_argument("--wire-dtype", dest="wire_dtype", default=None,
+                    help="wire dtype of the smashed rows (sharded): "
+                         "float32, bfloat16, int8 or float8_e4m3")
+    ap.add_argument("--wire-dtype-bwd", dest="wire_dtype_bwd", default=None,
+                    help="wire dtype of the routed-back gradient rows")
+    ap.add_argument("--pipeline", default="sync",
+                    choices=("sync", "double_buffered"))
+    ap.add_argument("--submesh", action="store_true", default=None)
+    for flag in ("--ckpt", "--resume", "--pods", "--drop-rate",
                  "--straggler-rate", "--straggler-timeout"):
         ap.add_argument(flag, default=None)
     args = ap.parse_args(argv)
@@ -160,8 +238,12 @@ def main(argv=None):
                          depth=args.depth, width=args.width, hw=args.hw,
                          lr=args.lr, scheme=args.scheme, alpha=args.alpha,
                          compute_dtype=args.compute_dtype, seed=args.seed,
-                         device=args.device, **later)
-    print(f"first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")
+                         device=args.device, sharded=args.sharded,
+                         collector=args.collector, pipeline=args.pipeline,
+                         submesh=args.submesh, wire_dtype=args.wire_dtype,
+                         wire_dtype_bwd=args.wire_dtype_bwd, **later)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")
 
 
 if __name__ == "__main__":

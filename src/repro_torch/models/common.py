@@ -42,10 +42,21 @@ class ComputePolicy:
         return bool(self.use_fused_kernels)
 
 
-def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL):
+def valid_count(valid, reduce=None):
+    """``max(#valid, 1)``, the loss's denominator; with ``reduce`` (a sum
+    over ranks) the count of every rank's rows."""
+    if reduce is None:
+        return valid.sum().clamp_min(1)
+    return reduce(valid.sum().to(torch.float32)).clamp_min(1)
+
+
+def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL,
+                          reduce=None):
     """logits (..., V); labels (...,) int. Mean over non-ignored rows, with
     ``max(#valid, 1)`` in the denominator: all-ignored gives 0, where
-    ``F.cross_entropy`` gives NaN."""
+    ``F.cross_entropy`` gives NaN. With ``reduce`` the rows are one rank's
+    share of a batch split over ranks: the sum is local and the count
+    global, so the ranks' losses sum to the global mean."""
     logits = logits.float()
     labels = labels.long()
     valid = labels != ignore
@@ -53,7 +64,7 @@ def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL):
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, safe[..., None])[..., 0]
     loss = torch.where(valid, lse - ll, torch.zeros_like(lse))
-    return loss.sum() / valid.sum().clamp_min(1)
+    return loss.sum() / valid_count(valid, reduce)
 
 
 def accuracy_from_logits(logits, labels, *, ignore=IGNORE_LABEL):

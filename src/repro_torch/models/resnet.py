@@ -85,14 +85,17 @@ def _cd(policy):
     return policy.cdtype() if policy is not None and policy.mixed else None
 
 
-def _bn(p, s, x, *, training, rmsd, policy=None, relu=False, valid=None):
+def _bn(p, s, x, *, training, rmsd, policy=None, relu=False, valid=None,
+        reduce=None):
     if policy is None:
         y, ns = batchnorm_apply(p, s, x, training=training,
-                                use_running_stats=rmsd, valid=valid)
+                                use_running_stats=rmsd, valid=valid,
+                                reduce=reduce)
         return (torch.relu(y) if relu else y), ns
     return batchnorm_act_apply(p, s, x, training=training, relu=relu,
                                use_running_stats=rmsd,
-                               use_kernel=policy.fused(), valid=valid)
+                               use_kernel=policy.fused(), valid=valid,
+                               reduce=reduce)
 
 
 def client_apply(params, state, x, *, training=True, rmsd=None, policy=None):
@@ -108,27 +111,27 @@ def client_apply(params, state, x, *, training=True, rmsd=None, policy=None):
 
 
 def _block_apply(p, s, x, stride, *, training, rmsd, policy=None,
-                 valid=None):
+                 valid=None, reduce=None):
     ns = {}
     cd = _cd(policy)
+    bn = dict(training=training, rmsd=rmsd, policy=policy, valid=valid,
+              reduce=reduce)
     h = conv2d_apply(p["conv1"], x, stride=stride, compute_dtype=cd)
-    h, ns["bn1"] = _bn(p["bn1"], s["bn1"], h, training=training, rmsd=rmsd,
-                       policy=policy, relu=True, valid=valid)
+    h, ns["bn1"] = _bn(p["bn1"], s["bn1"], h, relu=True, **bn)
     h = conv2d_apply(p["conv2"], h, compute_dtype=cd)
-    h, ns["bn2"] = _bn(p["bn2"], s["bn2"], h, training=training, rmsd=rmsd,
-                       policy=policy, valid=valid)
+    h, ns["bn2"] = _bn(p["bn2"], s["bn2"], h, **bn)
     if "proj" in p:
         x = conv2d_apply(p["proj"], x, stride=stride, compute_dtype=cd)
-        x, ns["bn_proj"] = _bn(p["bn_proj"], s["bn_proj"], x,
-                               training=training, rmsd=rmsd, policy=policy,
-                               valid=valid)
+        x, ns["bn_proj"] = _bn(p["bn_proj"], s["bn_proj"], x, **bn)
     return torch.relu(h + x), ns
 
 
 def server_apply(params, state, a, cfg: ResNetConfig, *, training=True,
-                 rmsd=None, policy=None, valid=None):
+                 rmsd=None, policy=None, valid=None, reduce=None):
     """a: smashed data (B, H, W, width) -> logits. Returns (logits, state).
-    ``valid`` (optional (B,) bool) drops rows from every BN statistic."""
+    ``valid`` (optional (B,) bool) drops rows from every BN statistic;
+    ``reduce`` (a differentiable sum over ranks) takes every BN statistic
+    over the batch of all ranks, ``a`` being this rank's slab of it."""
     ns = {}
     h = a if policy is None else policy.cast(a)
     for stage in range(3):
@@ -137,7 +140,8 @@ def server_apply(params, state, a, cfg: ResNetConfig, *, training=True,
             name = f"s{stage}b{b}"
             h, ns[name] = _block_apply(params[name], state[name], h, stride,
                                        training=training, rmsd=rmsd,
-                                       policy=policy, valid=valid)
+                                       policy=policy, valid=valid,
+                                       reduce=reduce)
     h = h.mean(dim=(1, 2))
     return dense_apply(params["fc"], h, compute_dtype=_cd(policy)), ns
 

@@ -20,10 +20,14 @@ import torch
 from repro_torch.nn.init import ones, zeros
 
 
-def _batch_moments(x, axes, valid):
+def _batch_moments(x, axes, valid, reduce=None):
     """f32 (mean, var) over ``axes``; rows with ``valid == False`` carry no
-    weight (``valid`` is a ``(batch,)`` bool mask over axis 0)."""
+    weight (``valid`` is a ``(batch,)`` bool mask over axis 0). ``reduce``
+    (a differentiable sum over ranks) makes them the moments of the batch
+    of every rank, each holding a slab of it."""
     x32 = x.float()
+    if reduce is not None:
+        return _global_moments(x32, axes, valid, reduce)
     if valid is None:
         var, mean = torch.var_mean(x32, dim=axes, correction=0)
         return mean, var
@@ -35,6 +39,23 @@ def _batch_moments(x, axes, valid):
     return mean, var
 
 
+def _global_moments(x32, axes, valid, reduce):
+    """Two-pass moments of a batch split over ranks: the sums and the
+    counts are all-reduced, then the squared deviations from the global
+    mean."""
+    spatial = math.prod(x32.shape[i] for i in axes if i != 0)
+    if valid is None:
+        cnt = reduce(x32.new_full((), float(x32.shape[0] * spatial)))
+        mean = reduce(x32.sum(dim=axes)) / cnt
+        var = reduce((x32 - mean).square().sum(dim=axes)) / cnt
+        return mean, var
+    w = valid.float().reshape((-1,) + (1,) * (x32.dim() - 1))
+    cnt = torch.clamp_min(reduce(w.sum()), 1.0) * float(spatial)
+    mean = reduce((x32 * w).sum(dim=axes)) / cnt
+    var = reduce((w * (x32 - mean).square()).sum(dim=axes)) / cnt
+    return mean, var
+
+
 def batchnorm_init(gen, dim, *, dtype=torch.float32):
     params = {"scale": ones(gen, (dim,), dtype),
               "bias": zeros(gen, (dim,), dtype)}
@@ -43,13 +64,14 @@ def batchnorm_init(gen, dim, *, dtype=torch.float32):
     return params, state
 
 
-def _stats(state, x, *, training, momentum, use_running_stats, valid):
+def _stats(state, x, *, training, momentum, use_running_stats, valid,
+           reduce=None):
     """(mean, var, new_state) for one BN call; the statistics stay in the
     autograd graph, the new running state does not."""
     stacked = state["mean"].dim() == 2
     axes = tuple(range(1 if stacked else 0, x.dim() - 1))
     if training:
-        mean, var = _batch_moments(x, axes, valid)
+        mean, var = _batch_moments(x, axes, valid, reduce)
         new_state = {
             "mean": momentum * state["mean"] + (1 - momentum) * mean.detach(),
             "var": momentum * state["var"] + (1 - momentum) * var.detach(),
@@ -59,7 +81,7 @@ def _stats(state, x, *, training, momentum, use_running_stats, valid):
     rmsd = True if use_running_stats is None else use_running_stats
     if rmsd:
         return state["mean"], state["var"], state
-    mean, var = _batch_moments(x, axes, valid)     # CMSD: the test batch's
+    mean, var = _batch_moments(x, axes, valid, reduce)   # CMSD: the batch's
     return mean, var, state
 
 
@@ -71,16 +93,17 @@ def _per_channel(t, x):
 
 
 def batchnorm_apply(params, state, x, *, training, momentum=0.9, eps=1e-5,
-                    use_running_stats=None, valid=None):
+                    use_running_stats=None, valid=None, reduce=None):
     """Returns (y, new_state). Training normalizes with the batch
     statistics and updates the running ones; inference uses the running
     statistics (RMSD, the default) or the test batch's own (CMSD,
     ``use_running_stats=False``). ``valid`` drops rows from the batch
-    statistics."""
+    statistics; ``reduce`` (a differentiable sum over ranks) takes them
+    over a batch split across ranks."""
     mean, var, new_state = _stats(state, x, training=training,
                                   momentum=momentum,
                                   use_running_stats=use_running_stats,
-                                  valid=valid)
+                                  valid=valid, reduce=reduce)
     x32 = x.float()
     y = (x32 - _per_channel(mean, x)) * _per_channel(
         1.0 / torch.sqrt(var + eps), x)
@@ -91,7 +114,7 @@ def batchnorm_apply(params, state, x, *, training, momentum=0.9, eps=1e-5,
 
 def batchnorm_act_apply(params, state, x, *, training, relu=True,
                         momentum=0.9, eps=1e-5, use_running_stats=None,
-                        use_kernel=False, valid=None):
+                        use_kernel=False, valid=None, reduce=None):
     """BatchNorm + optional ReLU with the elementwise tail fused.
 
     Same statistics as :func:`batchnorm_apply`, but the per-channel
@@ -105,7 +128,7 @@ def batchnorm_act_apply(params, state, x, *, training, relu=True,
     mean, var, new_state = _stats(state, x, training=training,
                                   momentum=momentum,
                                   use_running_stats=use_running_stats,
-                                  valid=valid)
+                                  valid=valid, reduce=reduce)
     a = params["scale"].float() / torch.sqrt(var + eps)
     b = params["bias"].float() - mean * a
     if use_kernel:

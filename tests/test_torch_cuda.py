@@ -5,8 +5,11 @@ one (and no JAX, which tests/conftest.py imports):
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: permute bitwise; bn_act 1 ulp of the working type; xent
-1e-5 relative (f32 math) forward, 1e-5 relative or 1 bf16 ulp backward.
+Tolerances: permute and the bucket gathers (K4a/K4b) bitwise; the
+quantize/dequantize gathers (K5a/K5b) bitwise in bytes, scales and
+values; bn_act 1 ulp of the working type; xent 1e-5 relative (f32 math)
+forward, 1e-5 relative or 1 bf16 ulp backward. The sharded epoch at
+world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
 """
 import pytest
 import torch
@@ -14,6 +17,9 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.bn_act import ops as bn_ops, ref as bn_ref
 from repro_torch.kernels.collector_permute import ops as perm_ops
+from repro_torch.kernels.collector_permute import ref as perm_ref
+from repro_torch.kernels.quant_permute import ops as quant_ops
+from repro_torch.kernels.quant_permute import ref as quant_ref
 from repro_torch.kernels.softmax_xent import ops as xent_ops
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +85,100 @@ def test_softmax_xent_kernels(dev, rows, v, dtype):
     rel = 1e-5 if dtype == torch.float32 else torch.finfo(dtype).eps
     d = (g.cpu().double() - g_cpu.double()).abs()
     assert bool((d <= rel * g_cpu.double().abs() + 1e-7).all())
+
+
+@pytest.mark.parametrize("rows,feat,sc", [(800, (32, 32, 16), (1, 800)),
+                                         (37, (5, 7, 3), (8, 5))])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_bucket_gather_kernels(dev, rows, feat, sc, dtype, idx_dtype):
+    x = torch.randn((rows,) + feat, device=dev).to(dtype)
+    idx = torch.randint(0, rows, sc, device=dev, dtype=idx_dtype)
+    before = (K.LAUNCHES["bucket_permute"], K.LAUNCHES["unbucket_permute"])
+    out = perm_ops.bucket_gather(x, idx)
+    assert torch.equal(out, perm_ref.bucket_permute(x, idx))
+    # receive side: the flat block plus the zero pad row
+    flat = torch.cat([out, torch.zeros_like(out[:1])])
+    ridx = torch.randint(0, flat.shape[0], (rows,), device=dev,
+                         dtype=idx_dtype)
+    back = perm_ops.unbucket_gather(flat, ridx)
+    assert torch.equal(back, perm_ref.unbucket_permute(flat, ridx))
+    assert (K.LAUNCHES["bucket_permute"], K.LAUNCHES["unbucket_permute"]) \
+        == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("rows,d,sc", [(800, 16384, (1, 800)),
+                                       (37, 105, (8, 5)), (9, 13, (3, 3))])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wire", ["int8", "float8_e4m3"])
+def test_quant_gather_kernels(dev, rows, d, sc, dtype, wire):
+    x = (3 * torch.randn(rows, d, device=dev)).to(dtype)
+    x[0] = 0
+    idx = torch.randint(0, rows, sc, device=dev, dtype=torch.int32)
+    before = (K.LAUNCHES["quant_bucket_permute"],
+              K.LAUNCHES["dequant_unbucket_permute"])
+    q, s = quant_ops.quant_bucket_permute(x, idx, wire_dtype=wire)
+    q_p, s_p = quant_ref.quant_bucket_permute(x, idx, wire)
+    assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+    assert torch.equal(s.view(torch.int32), s_p.view(torch.int32))
+    payload = quant_ops.quant_bucket_permute_packed(x, idx, wire_dtype=wire)
+    assert torch.equal(payload[:, :d].view(torch.uint8), q.view(torch.uint8))
+    flat = torch.cat([payload, torch.zeros_like(payload[:1])])
+    ridx = torch.randint(0, flat.shape[0], (rows,), device=dev)
+    out = quant_ops.dequant_unbucket_permute_packed(flat, ridx,
+                                                    out_dtype=dtype)
+    from repro_torch.core.wire import unpack_scales
+    want = quant_ref.dequant_unbucket_permute(
+        flat[:, :d], unpack_scales(flat[:, d:]), ridx, dtype)
+    assert torch.equal(out, want)
+    assert (K.LAUNCHES["quant_bucket_permute"],
+            K.LAUNCHES["dequant_unbucket_permute"]) == (before[0] + 2,
+                                                        before[1] + 1)
+
+
+def test_sharded_epoch_world1_matches_dense(dev):
+    """``sfpl_epoch_sharded`` on a world-size-1 NCCL group through K4a/K4b
+    against ``sfpl_round`` with the dense gather, same init and
+    permutations: within 1e-5 (f32, ResNet-8 width 8, 8 clients)."""
+    import dataclasses
+    from repro_torch.core import engine as E, engine_dist as ED, round as RD
+    from repro_torch.data import (make_synthetic_cifar,
+                                  partition_positive_labels)
+    from repro_torch.models import resnet as R
+    from repro_torch.optim import sgd_momentum
+    n, b = 8, 8
+    cfg = R.ResNetConfig(depth=8, num_classes=n, width=8)
+    g = torch.Generator().manual_seed(0)
+    tx, ty, _, _ = make_synthetic_cifar(g, num_classes=n,
+                                        train_per_class=2 * b,
+                                        test_per_class=1, hw=8, device=dev)
+    data = partition_positive_labels(tx, ty, n)
+    opt = sgd_momentum(0.05, momentum=0.9, weight_decay=5e-4)
+    st = E.init_dcml_state(g, lambda k: R.init(k, cfg), n, opt, opt)
+    split = E.make_resnet_split(cfg)
+    torch.backends.cudnn.allow_tf32 = False
+    group = ED.init_data_group(dev)
+    try:
+        K.reset_launches()
+        _, l_mesh = ED.sfpl_epoch_sharded(
+            torch.Generator().manual_seed(3), st, data, split, opt, opt,
+            group=group, num_clients=n, batch_size=b, device=dev)
+        assert K.LAUNCHES["bucket_permute"] > 0
+        assert K.LAUNCHES["unbucket_permute"] > 0
+        coll = group.collector(n)
+        gen = torch.Generator().manual_seed(3)
+        perms = [coll.make_perm(gen, n * b, dev) for _ in range(2)]
+
+        @dataclasses.dataclass(frozen=True)
+        class Given(RD.DenseTake):
+            it: object = None
+
+            def make_perm(self, gen, n, device=None):
+                return next(self.it)
+        _, l_dense = RD.sfpl_round(None, st, data, split, opt, opt,
+                                   num_clients=n, batch_size=b,
+                                   collector=Given(n, it=iter(perms)),
+                                   device=dev)
+    finally:
+        ED.close_data_group()
+    assert float((l_mesh - l_dense).abs().max()) <= 1e-5

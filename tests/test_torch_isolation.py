@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-running a one-step SFPL epoch loads neither ``jax`` nor ``repro``; and the
-entry points run on CUDA by default, raising when it is absent."""
+running a one-step SFPL epoch, single-device and sharded (world size 1,
+int8 wire), loads neither ``jax`` nor ``repro``; and the entry points run
+on CUDA by default, raising when it is absent."""
 import os
 import subprocess
 import sys
@@ -32,6 +33,14 @@ opt = sgd_momentum(0.05, momentum=0.9)
 st = E.init_dcml_state(g, lambda k: R.init(k, cfg), n, opt, opt)
 st, losses = E.sfpl_epoch(g, st, data, E.make_resnet_split(cfg), opt, opt,
                           num_clients=n, batch_size=b, device="cpu")
+assert losses.shape == (1,) and bool(torch.isfinite(losses).all())
+
+from repro_torch.core import engine_dist as ED
+grp = ED.init_data_group("cpu")
+st, losses = ED.sfpl_epoch_sharded(
+    g, st, data, E.make_resnet_split(cfg), opt, opt, group=grp,
+    num_clients=n, batch_size=b, wire_dtype="int8", device="cpu")
+ED.close_data_group()
 assert losses.shape == (1,) and bool(torch.isfinite(losses).all())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -67,8 +76,36 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_later_slice_knobs_raise_not_implemented():
     from repro_torch.launch.train import main
-    for argv in (["--paper", "--sharded"], ["--paper", "--wire-dtype", "int8"],
+    for argv in (["--paper", "--pods", "2"],
+                 ["--paper", "--pipeline", "double_buffered"],
                  ["--paper", "--ckpt", "s.npz"], ["--paper", "--drop-rate",
                                                   "0.2"], []):
         with pytest.raises(NotImplementedError, match="slice"):
             main(argv + ["--device", "cpu", "--epochs", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pods", "2"], ["--pipeline", "double_buffered"], ["--submesh"],
+    ["--sharded", "--scheme", "sflv2"]])
+def test_slice_c2_knobs_raise_naming_c2(argv):
+    """The sharded knobs still to port name slice C2, before any process
+    group or device work."""
+    from repro_torch.launch.train import main
+    with pytest.raises(NotImplementedError, match="slice C2"):
+        main(["--paper", "--sharded", "--device", "cpu", "--epochs", "1"]
+             + argv)
+
+
+def test_c2_layouts_raise_in_the_engine():
+    from repro_torch.core import engine_dist as ED
+    from repro_torch.core.round import DataGroup
+    for kw in ({"collector_pipeline": "double_buffered"},
+               {"collector_submesh": True}, {"pods": 2}):
+        with pytest.raises(NotImplementedError, match="slice C2"):
+            ED.check_sfpl_layout(8, 8, 2, **kw)
+    # before any collective: no process group needs to exist
+    with pytest.raises(NotImplementedError, match="slice C2"):
+        ED.sfpl_epoch_sharded(None, {}, {}, None, None, None,
+                              group=DataGroup(None, 0, 2), num_clients=8,
+                              batch_size=8,
+                              collector_pipeline="double_buffered")

@@ -3,9 +3,14 @@
 The Pallas kernels run in interpret mode on the CPU, as tests/test_kernels.py
 runs them; the port's wrappers, given CPU tensors, run their plain
 versions. Inputs are made with numpy from a seed; bf16 inputs are rounded
-to bf16 identically on both sides. Tolerances: permute bitwise; bn_act
-1e-6 in f32 and 1 bf16 ulp; softmax_xent value and logits-grad 1e-5 in f32
-and 1e-2 in bf16. Each ``autograd.Function`` also passes
+to bf16 identically on both sides. Tolerances: permute and the route
+plan's bucket gathers (K4a/K4b) bitwise, their scatter-add gradients
+1e-6; the quantize/dequantize gathers (K5a/K5b) bitwise, in quantized
+bytes, scales and dequantized values, with their straight-through
+gradient 1e-6; bn_act 1e-6 in f32 and 1 bf16 ulp; softmax_xent value and
+logits-grad 1e-5 in f32 and 1e-2 in bf16. The shapes are
+tests/test_kernels.py's fuzz shapes (ragged widths, repeated indices,
+B != R). Each differentiable ``autograd.Function`` also passes
 ``torch.autograd.gradcheck`` in float64 on the plain path.
 """
 import jax
@@ -14,12 +19,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import wire as JW
 from repro.kernels.bn_act.ops import bn_act as j_bn_act
 from repro.kernels.collector_permute.ops import (
-    collector_permute as j_permute, collector_permute_ad as j_permute_ad)
+    bucket_permute as j_bucket, bucket_permute_ad as j_bucket_ad,
+    collector_permute as j_permute, collector_permute_ad as j_permute_ad,
+    unbucket_permute as j_unbucket, unbucket_permute_ad as j_unbucket_ad)
+from repro.kernels.quant_permute.ops import (
+    dequant_unbucket_permute as j_dequant,
+    quant_bucket_permute as j_quant,
+    quant_dequant_roundtrip_ad as j_roundtrip)
 from repro.kernels.softmax_xent.ops import softmax_xent as j_xent
 from repro_torch.kernels.bn_act import ops as bn_ops
 from repro_torch.kernels.collector_permute import ops as perm_ops
+from repro_torch.kernels.quant_permute import ops as quant_ops
 from repro_torch.kernels.softmax_xent import ops as xent_ops
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -66,6 +79,185 @@ def test_inverse_permutation_is_argsort():
     perm = torch.from_numpy(np.random.default_rng(3).permutation(50))
     np.testing.assert_array_equal(perm_ops.inverse_permutation(perm).numpy(),
                                   np.argsort(perm.numpy()))
+
+
+# --------------------------------------------------------------------------
+# K4a / K4b: the route plan's bucket gathers
+
+def _index_map(rng, rows, perm):
+    """A permutation (the dense plan) or a map with repeats and gaps (the
+    slack-padded plan reuses filler rows)."""
+    return (rng.permutation(rows) if perm
+            else rng.integers(0, rows, rows)).astype(np.int32)
+
+
+@pytest.mark.parametrize("sc,feat,perm,dtype", [
+    ((2, 3), 16, True, "float32"), ((4, 4), 100, False, "bfloat16"),
+    ((8, 2), 512, True, "bfloat16"), ((3, 7), 513, False, "float32"),
+    ((3, 7), 513, True, "bfloat16"), ((4, 4), 16, False, "float32")])
+def test_bucket_permute_plain_matches_pallas(sc, feat, perm, dtype):
+    s, cap = sc
+    rows = s * cap
+    rng = np.random.default_rng(s * 131 + cap * 17 + feat)
+    xj, xt = _pair(rng.standard_normal((rows, feat)).astype(np.float32),
+                   dtype)
+    idx = _index_map(rng, rows, perm).reshape(s, cap)
+    out_j = j_bucket(xj, jnp.asarray(idx), interpret=True)
+    out_t = perm_ops.bucket_gather(xt, torch.from_numpy(idx))
+    assert out_t.dtype == xt.dtype and tuple(out_t.shape) == (rows, feat)
+    np.testing.assert_array_equal(_np(out_t), np.asarray(out_j, np.float32))
+
+
+@pytest.mark.parametrize("rows,b,feat,dtype", [
+    (2, 1, 16, "float32"), (40, 33, 100, "bfloat16"), (17, 5, 513,
+                                                       "float32"),
+    (9, 16, 513, "bfloat16"), (33, 33, 16, "float32")])
+def test_unbucket_permute_plain_matches_pallas(rows, b, feat, dtype):
+    """Including B != R (the receive block holds the pad row, or more
+    rows than one slab) and repeated indices."""
+    rng = np.random.default_rng(rows * 7 + b + feat)
+    xj, xt = _pair(rng.standard_normal((rows, feat)).astype(np.float32),
+                   dtype)
+    idx = rng.integers(0, rows, b).astype(np.int32)
+    out_j = j_unbucket(xj, jnp.asarray(idx), interpret=True)
+    out_t = perm_ops.unbucket_gather(xt, torch.from_numpy(idx))
+    assert out_t.dtype == xt.dtype and tuple(out_t.shape) == (b, feat)
+    np.testing.assert_array_equal(_np(out_t), np.asarray(out_j, np.float32))
+
+
+@pytest.mark.parametrize("sc,feat,perm", [((2, 4), 16, True),
+                                          ((4, 3), 129, False),
+                                          ((8, 2), 16, False)])
+def test_bucket_gather_grads_match_jax(sc, feat, perm):
+    """The scatter-add backward of both gathers against ``jax.grad`` of
+    the JAX ``_ad`` wrappers: repeats in the index map accumulate."""
+    s, cap = sc
+    rows = s * cap
+    rng = np.random.default_rng(s * 37 + feat)
+    x = rng.standard_normal((rows, feat)).astype(np.float32)
+    w = rng.standard_normal((rows, feat)).astype(np.float32)
+    flat = _index_map(rng, rows, perm)
+    for j_ad, t_op, idx in (
+            (j_bucket_ad, perm_ops.bucket_permute, flat.reshape(s, cap)),
+            (j_unbucket_ad, perm_ops.unbucket_permute, flat)):
+        gj = jax.grad(lambda z: jnp.sum(j_ad(z, jnp.asarray(idx), True)
+                                        * w))(jnp.asarray(x))
+        xt = torch.from_numpy(x).requires_grad_()
+        (gt,) = torch.autograd.grad(
+            (t_op(xt, torch.from_numpy(idx)) * torch.from_numpy(w)).sum(),
+            xt)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-6,
+                                   atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# K5a / K5b: the quantized wire's fused gathers
+
+@pytest.mark.parametrize("sc,feat,perm,wire,dtype", [
+    ((2, 3), 16, True, "int8", "float32"),
+    ((4, 4), 100, False, "int8", "bfloat16"),
+    ((8, 2), 512, True, "float8_e4m3", "float32"),
+    ((3, 7), 513, False, "float8_e4m3", "bfloat16"),
+    ((3, 7), 513, True, "int8", "float32"),
+    ((4, 4), 16, True, "float8_e4m3", "bfloat16")])
+def test_quant_bucket_permute_plain_matches_pallas(sc, feat, perm, wire,
+                                                   dtype):
+    """Quantized rows and f32 scales bit for bit, an all-zero row
+    included; the packed payload carries the same bytes."""
+    s, cap = sc
+    rows = s * cap
+    rng = np.random.default_rng(s * 101 + cap * 13 + feat)
+    x = (rng.standard_normal((rows, feat)) * 3).astype(np.float32)
+    x[1] = 0.0
+    xj, xt = _pair(x, dtype)
+    idx = _index_map(rng, rows, perm).reshape(s, cap)
+    qj, sj = j_quant(xj, jnp.asarray(idx), wire_dtype=wire, interpret=True)
+    qt, st = quant_ops.quant_bucket_permute(xt, torch.from_numpy(idx),
+                                            wire_dtype=wire)
+    assert qt.dtype == {"int8": torch.int8,
+                        "float8_e4m3": torch.float8_e4m3fn}[wire]
+    np.testing.assert_array_equal(qt.view(torch.uint8).numpy(),
+                                  np.asarray(qj).view(np.uint8))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    packed = quant_ops.quant_bucket_permute_packed(
+        xt, torch.from_numpy(idx), wire_dtype=wire)
+    want = np.concatenate([np.asarray(qj).view(np.uint8), np.asarray(
+        JW.pack_scales(sj, wire)).view(np.uint8)], axis=1)
+    np.testing.assert_array_equal(packed.view(torch.uint8).numpy(), want)
+
+
+@pytest.mark.parametrize("rows,b,feat,wire,out_dtype", [
+    (2, 1, 16, "int8", "float32"), (40, 33, 100, "float8_e4m3", "bfloat16"),
+    (17, 5, 513, "int8", "bfloat16"), (9, 16, 513, "float8_e4m3",
+                                       "float32"),
+    (33, 33, 16, "int8", "float32")])
+def test_dequant_unbucket_permute_plain_matches_pallas(rows, b, feat, wire,
+                                                       out_dtype):
+    """Dequantized gathered rows bit for bit, from separate q and scales
+    and from the packed payload (the pad row's zero scale included)."""
+    rng = np.random.default_rng(rows * 11 + b + feat)
+    x = (rng.standard_normal((rows, feat)) * 2).astype(np.float32)
+    x[0] = 0.0
+    qj, sj = JW.quantize_rows(jnp.asarray(x), wire)
+    idx = rng.integers(0, rows, b).astype(np.int32)
+    jd, td = DT[out_dtype]
+    out_j = np.asarray(j_dequant(qj, sj, jnp.asarray(idx), out_dtype=jd,
+                                 interpret=True).astype(jnp.float32))
+    qt = torch.from_numpy(np.asarray(qj).view(np.uint8).copy()).view(
+        {"int8": torch.int8, "float8_e4m3": torch.float8_e4m3fn}[wire])
+    st = torch.from_numpy(np.asarray(sj).copy())
+    out_t = quant_ops.dequant_unbucket_permute(qt, st, torch.from_numpy(idx),
+                                               out_dtype=td)
+    assert out_t.dtype == td and tuple(out_t.shape) == (b, feat)
+    np.testing.assert_array_equal(_np(out_t), out_j)
+    packed = torch.cat([qt, torch.from_numpy(np.asarray(
+        JW.pack_scales(sj, wire)).view(np.uint8).copy()).view(qt.dtype)], 1)
+    out_p = quant_ops.dequant_unbucket_permute_packed(
+        packed, torch.from_numpy(idx), out_dtype=td)
+    np.testing.assert_array_equal(_np(out_p), out_j)
+
+
+@pytest.mark.parametrize("wire,tol", [("int8", 2e-2), ("float8_e4m3", 2e-1)])
+def test_quant_roundtrip_error_bound_and_zero_rows(wire, tol):
+    """Inside the wire grid's per-row error bound (relative to the row
+    amax), and an all-zero row comes back exactly."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((12, 64)) * 5).astype(np.float32)
+    x[3] = 0.0
+    xt = torch.from_numpy(x)
+    idx = torch.arange(12, dtype=torch.int32)
+    q, s = quant_ops.quant_bucket_permute(xt, idx.reshape(4, 3),
+                                          wire_dtype=wire)
+    out = quant_ops.dequant_unbucket_permute(q, s, idx,
+                                             out_dtype=torch.float32)
+    amax = np.abs(x).max(axis=1, keepdims=True)
+    assert (np.abs(out.numpy() - x) <= tol * amax).all()
+    assert not out[3].any()
+
+
+@pytest.mark.parametrize("sc,feat,perm,wire", [
+    ((2, 4), 16, True, "int8"), ((4, 3), 129, False, "float8_e4m3"),
+    ((8, 2), 16, False, "int8")])
+def test_quant_roundtrip_grad_is_straight_through(sc, feat, perm, wire):
+    """The round trip's gradient against ``jax.grad`` of
+    ``quant_dequant_roundtrip_ad``: routed by the composed gather alone,
+    scatter-adding on repeats."""
+    s, cap = sc
+    rows = s * cap
+    rng = np.random.default_rng(s * 43 + feat)
+    x = rng.standard_normal((rows, feat)).astype(np.float32)
+    w = rng.standard_normal((rows, feat)).astype(np.float32)
+    send = _index_map(rng, rows, perm).reshape(s, cap)
+    recv = rng.permutation(rows).astype(np.int32)
+    gj = jax.grad(lambda z: jnp.sum(j_roundtrip(
+        z, jnp.asarray(send), jnp.asarray(recv), wire, True) * w))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = quant_ops.quant_dequant_roundtrip_ad(
+        xt, torch.from_numpy(send), torch.from_numpy(recv), wire)
+    (gt,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), xt)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-6,
+                               atol=1e-6)
 
 
 # --------------------------------------------------------------------------
@@ -191,3 +383,16 @@ def test_gradcheck_softmax_xent():
     lab = torch.tensor([0, 4, -100, 2, 1, -100, 3])
     assert torch.autograd.gradcheck(
         lambda z: xent_ops.softmax_xent(z, lab), (x,))
+
+
+@pytest.mark.parametrize("which", ["bucket", "unbucket"])
+def test_gradcheck_bucket_gathers(which):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(6, 3, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    idx = torch.tensor([[0, 3, 3], [5, 1, 0]], dtype=torch.int32)
+    op = perm_ops.bucket_permute if which == "bucket" else \
+        perm_ops.unbucket_permute
+    if which == "unbucket":
+        idx = idx.reshape(-1)
+    assert torch.autograd.gradcheck(lambda z: op(z, idx), (x,))
