@@ -7,7 +7,10 @@ the kernels are built for sm_90a). It builds the hand-written kernels from
 ``src/repro_torch/kernels``, checks each against its plain PyTorch version
 at the main paths' shapes, drives the SFPL trainer at full ResNet-56 width
 on one device (phases 3-5) and the sharded SFPL epoch on a world-size-1
-NCCL group with the int8 wire (phase 6), and prints, as its last line,
+NCCL group with the int8 wire (phases 6-7), then qwen3-8b at full width:
+the prefill through the flash-attention kernel (phase 8), 2-layer f32
+checks of prefill, cached decode and the continuous-batching scheduler
+(phase 9), and serving (phase 10). It prints, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
 exits non-zero at once.
@@ -48,15 +51,21 @@ def setup():
 torch = setup()
 
 from repro_torch import kernels as K                          # noqa: E402
+from repro_torch.configs import get_arch                      # noqa: E402
 from repro_torch.kernels import build                         # noqa: E402
 from repro_torch.kernels.bn_act import kernel as bn_k         # noqa: E402
 from repro_torch.kernels.bn_act import ref as bn_ref          # noqa: E402
 from repro_torch.kernels.collector_permute import kernel as perm_k  # noqa
 from repro_torch.kernels.collector_permute import ref as perm_ref   # noqa
+from repro_torch.kernels.flash_attention import kernel as flash_k  # noqa
+from repro_torch.kernels.flash_attention import ref as flash_ref   # noqa
 from repro_torch.kernels.quant_permute import kernel as quant_k  # noqa
 from repro_torch.kernels.quant_permute import ref as quant_ref   # noqa
+from repro_torch.kernels.rmsnorm import kernel as rms_k      # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rms_ref        # noqa: E402
 from repro_torch.kernels.softmax_xent import kernel as xent_k  # noqa: E402
 from repro_torch.kernels.softmax_xent import ref as xent_ref   # noqa: E402
+from repro_torch.tree import tree_leaves                      # noqa: E402
 
 DEV = torch.device("cuda")
 REPLACES = {
@@ -69,6 +78,8 @@ REPLACES = {
     "quant_bucket_permute": "src/repro/kernels/quant_permute/kernel.py:47",
     "dequant_unbucket_permute":
         "src/repro/kernels/quant_permute/kernel.py:89",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
 }
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bn_act": ("cuda", bn_k.SOURCE),
@@ -77,7 +88,9 @@ ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bucket_permute": ("cuda", perm_k.SOURCE),
          "unbucket_permute": ("cuda", perm_k.SOURCE),
          "quant_bucket_permute": ("cuda", quant_k.SOURCE),
-         "dequant_unbucket_permute": ("cuda", quant_k.SOURCE)}
+         "dequant_unbucket_permute": ("cuda", quant_k.SOURCE),
+         "rmsnorm": ("triton", rms_k.SOURCE),
+         "flash_attention": ("cuda", flash_k.SOURCE)}
 # the kernels of the single-device path (phases 3-5); the sharded path
 # (phase 6) adds the other four
 SINGLE_DEVICE = ("collector_permute", "bn_act", "xent_fwd", "xent_bwd")
@@ -87,7 +100,8 @@ SYMBOL = {"collector_permute": "permute_rows", "bn_act": "bn_act_kernel",
           "bucket_permute": "bucket_gather_rows",
           "unbucket_permute": "recv_gather_rows",
           "quant_bucket_permute": "quant_bucket_rows",
-          "dequant_unbucket_permute": "dequant_recv_rows"}
+          "dequant_unbucket_permute": "dequant_recv_rows",
+          "rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd"}
 
 
 def phase(name):
@@ -175,9 +189,12 @@ def eager_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops, dtype):
+def bound_ms(nbytes, flops, peak="float32"):
+    """The larger of bytes over the HBM rate and operations over the peak
+    rate of their type: ``float32`` (CUDA cores; elementwise work in any
+    storage dtype is f32 math) or ``bfloat16`` (the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -197,17 +214,25 @@ RESULTS = []
 
 
 def record(name, shape, dtype, err, ok, tol, fn, plain, nbytes, flops,
-           library=None):
+           library=None, peak="float32", heavy=False):
+    """Check, time and print one kernel row. ``heavy``: calls of many
+    milliseconds whose plain version allocates gigabytes; timed with fewer
+    calls, and the plain and library versions eagerly, not in a graph."""
     if not ok:
         raise AssertionError(f"{name} {tuple(shape)} {dtype}: kernel "
                              f"disagrees with its plain version (max err "
                              f"{err}, tol {tol})")
-    b, by = bound_ms(nbytes, flops, dtype)
+    b, by = bound_ms(nbytes, flops, peak)
+    if heavy:
+        timed = lambda f: time_ms(f, iters=2, reps=2)   # noqa: E731
+        other = lambda f: eager_ms(f, iters=2)          # noqa: E731
+    else:
+        timed = other = time_ms
     row = dict(name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
-               max_abs_err=err, tol=tol, ok=ok, ms=time_ms(fn),
-               eager_ms=eager_ms(fn), plain_ms=time_ms(plain), bound_ms=b,
-               bound_by=by,
-               library_ms=None if library is None else time_ms(library))
+               max_abs_err=err, tol=tol, ok=ok, ms=timed(fn),
+               eager_ms=eager_ms(fn, iters=2 if heavy else 20),
+               plain_ms=other(plain), bound_ms=b, bound_by=by,
+               library_ms=None if library is None else other(library))
     RESULTS.append(row)
     print(json.dumps(row), flush=True)
 
@@ -357,6 +382,139 @@ def check_quant(rows, d, dtype, wire, sc, pad):
            plain_recv, rows * (d + 4) + rows * 4 + rows * d * isz, rows * d)
 
 
+def check_rmsnorm(rows, d, dtype, offset=0.0):
+    """K6 against its plain version: 1e-5 in f32, 1 ulp in bf16."""
+    x = torch.randn(rows, d, device=DEV).to(dtype)
+    scale = torch.randn(d, device=DEV) * 0.1 + 1.0
+    lib_scale = scale.to(dtype)          # the fused library call's weight
+    got = rms_k.rmsnorm(x, scale, scale_offset=offset)
+    want = rms_ref.rmsnorm_ref(x, scale, scale_offset=offset)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        tol, (err, ok) = "1e-5", compare(got, want, 1e-5, 1e-5)
+    else:
+        tol = f"1 ulp of {dtype}"
+        err, ok = compare(got, want, ulp(dtype), torch.finfo(dtype).tiny)
+    record("rmsnorm", x.shape, dtype, err, ok, tol,
+           lambda: rms_k.rmsnorm(x, scale, scale_offset=offset),
+           lambda: rms_ref.rmsnorm_ref(x, scale, scale_offset=offset),
+           2 * x.numel() * x.element_size() + d * 4, 4 * x.numel(),
+           library=lambda: torch.nn.functional.rms_norm(x, (d,), lib_scale,
+                                                        1e-6))
+
+
+def attention_pairs(sq, skv, causal, window):
+    """(query, key) pairs the causal, window and length masks leave: the
+    work this input needs (the kernel skips dead tiles, not dead pairs)."""
+    iq = torch.arange(sq, dtype=torch.int64)
+    lo = (iq - window + 1).clamp_min(0) if window else torch.zeros_like(iq)
+    hi = iq.clamp_max(skv - 1) if causal else torch.full_like(iq, skv - 1)
+    return int((hi - lo + 1).clamp_min(0).sum())
+
+
+def attention_plain_by_head(q, k, v, causal, window):
+    """The plain version one q head at a time: at S = 32768 the whole
+    (B, H, S, S) f32 score tensor would be 137 GB."""
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([flash_ref.attention_ref(
+        q[:, :, h:h + 1], k[:, :, h // g:h // g + 1],
+        v[:, :, h // g:h // g + 1], causal=causal, window=window)
+        for h in range(q.shape[2])], dim=2)
+
+
+def sdpa_gqa(q, k, v, causal):
+    """The library yardstick: one fused SDPA call with GQA, on its flash or
+    memory-efficient backends only (the math backend would materialise the
+    scores). Timed here, used nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+
+
+def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
+                library=False):
+    """K7 against its plain version on random (B, S, heads, D) inputs:
+    2e-3 in f32, 2e-2 in bf16 (tests/test_kernels.py's bounds). Returns
+    the max error; with ``time``, also times and prints the row."""
+    q, k, v = (torch.randn(b, s, n, d, device=DEV).to(dtype)
+               for n in (h, kh, kh))
+    big = b * h * s * s >= 2 ** 31
+    plain = (attention_plain_by_head if big else
+             lambda *a: flash_ref.attention_ref(*a[:3], causal=a[3],
+                                                window=a[4]))
+    got = flash_k.flash_attention(q, k, v, causal=causal, window=window)
+    want = plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    err, ok = compare(got, want, tol, tol)
+    if not ok:
+        raise AssertionError(f"flash_attention {(b, s, h, kh, d)} {dtype} "
+                             f"causal={causal} window={window}: max err "
+                             f"{err} (tol {tol})")
+    if not time:
+        return err
+    lib = None
+    if library:
+        try:
+            sdpa_gqa(q, k, v, causal)
+            lib = lambda: sdpa_gqa(q, k, v, causal)      # noqa: E731
+        except RuntimeError as e:       # no fused backend takes these inputs
+            print(f"  SDPA yardstick unavailable at {tuple(q.shape)}: "
+                  f"{str(e).splitlines()[0][:200]}")
+    pairs = attention_pairs(s, s, causal, window)
+    record("flash_attention", (b, s, h, kh, d), dtype, err, ok,
+           f"{tol} abs + rel",
+           lambda: flash_k.flash_attention(q, k, v, causal=causal,
+                                           window=window),
+           lambda: plain(q, k, v, causal, window),
+           2 * (q.numel() + k.numel()) * q.element_size(),
+           4 * b * h * d * pairs, library=lib,
+           peak="bfloat16" if dtype == torch.bfloat16 else "float32",
+           heavy=big or s >= 4096)
+    return err
+
+
+# The prefill cut: the repo's prefill_32k shape is B 32 x S 32768; here
+# B 4 x S 4096 (PERF.md section 4).
+LM_BATCH, LM_SEQ = 4, 4096
+
+
+def kernels_lm():
+    """K6 at qwen3-8b's norm shapes and the ragged widths of the JAX tests;
+    K7 at the prefill's shape, one long sequence, and the fuzz grid."""
+    main = {}
+    check_rmsnorm(16384, 4096, torch.bfloat16)
+    main["rmsnorm"] = RESULTS[-1]
+    check_rmsnorm(524288, 128, torch.bfloat16)
+    for rows, d in ((37, 100), (33, 300)):
+        for offset in (0.0, 1.0):
+            check_rmsnorm(rows, d, torch.float32, offset)
+    # the prefill's shape (phase 8), batch 1 of it, and one long sequence
+    check_flash(LM_BATCH, LM_SEQ, 32, 8, 128, torch.bfloat16, library=True)
+    main["flash_attention"] = RESULTS[-1]
+    check_flash(1, LM_SEQ, 32, 8, 128, torch.bfloat16, library=True)
+    check_flash(1, 32768, 32, 8, 128, torch.bfloat16, library=True)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (16, 100):
+            for h, kh in ((4, 2), (8, 1), (4, 4)):
+                for d in (32, 64):
+                    for causal in (True, False):
+                        for window in (None, 16):
+                            err = check_flash(2, s, h, kh, d, dtype, causal,
+                                              window, time=False)
+                            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        check_flash(2, 100, 8, 1, 64, dtype, window=16)
+    print("flash_attention fuzz grid (S 16/100, H/K 4/2 8/1 4/4, D 32/64, "
+          "causal or not, window none/16): max err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+    return main
+
+
 # Main-path shapes at full width: ResNet-56 (width 16, 100 classes), 100
 # clients x batch 8, 32x32 images; the pool is 800 rows of 32*32*16.
 POOL, HW, WIDTH, CLASSES, CLIENTS, BATCH = 800, 32, 16, 100, 100, 8
@@ -394,6 +552,7 @@ def kernels_vs_plain():
                 main["quant_bucket_permute"] = RESULTS[-2]
                 main["dequant_unbucket_permute"] = RESULTS[-1]
             check_quant(37, 105, dtype, wire, (4, 10), 1)
+    main.update(kernels_lm())
     return main
 
 
@@ -475,10 +634,10 @@ def main_path():
     return launches
 
 
-def profile_steps(epoch, steps=2):
-    """Device time by kernel over ``steps`` warm SFPL steps
-    (``epoch(steps)`` under torch.profiler), and the device's busy share
-    of the wall time."""
+def profile_steps(epoch, steps=2, what="warm steps"):
+    """Device time by kernel over ``steps`` warm SFPL steps (or one call of
+    another path, named by ``what``): ``epoch(steps)`` under
+    torch.profiler, and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -494,7 +653,7 @@ def profile_steps(epoch, steps=2):
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
-    print(f"profile over {steps} warm steps: wall {wall_us / 1e3:.1f} ms, "
+    print(f"profile over {steps} {what}: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms "
           f"({100 * busy / wall_us:.1f}% of wall)")
     waits = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()
@@ -770,6 +929,274 @@ def sharded_entry_point():
         raise AssertionError("sharded train did not run the sharded path")
 
 
+# --------------------------------------------------------------------------
+# phases 8-10: qwen3-8b prefill and serving
+
+def lm_init(cfg, seed):
+    """Random weights drawn on the card from ``seed`` (no host draw)."""
+    spec = get_arch("qwen3-8b")
+    t0 = time.perf_counter()
+    params = spec.model.init(torch.Generator(device=DEV).manual_seed(seed),
+                             cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"init {cfg.name} ({cfg.num_layers} layers): {n / 1e9:.3f} B "
+          f"params, {n * 4 / 1e9:.1f} GB f32, on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def lm_prefill():
+    phase(f"8. LM prefill: qwen3-8b full width (36 layers), f32 params, "
+          f"bf16 compute, attention through K7, make_prefill_step, "
+          f"B {LM_BATCH} x S {LM_SEQ}")
+    import dataclasses
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn.linear import embedding_apply
+    from repro_torch.nn.norm import rmsnorm_apply
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config(attention_impl="kernel")
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=0)
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                             generator=gen, device=DEV)
+        batch = {"tokens": toks}
+        prefill = make_prefill_step(spec, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        warm = min(walls)
+        n_tok = LM_BATCH * LM_SEQ
+        print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
+              f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # the stacked (num_groups, in, out) weights of the layers
+        dense = sum(a.numel() for a in tree_leaves(params["layers"])
+                    if a.dim() == 3)
+        head = 2 * LM_BATCH * cfg.d_model * cfg.vocab_size
+        print(f"dense matmul FLOPs per prefill: {2 * n_tok * dense:.3e} in "
+              f"the layers, {head:.3e} in the last-token unembedding")
+        print(f"launches in one prefill: flash_attention "
+              f"{launches['flash_attention']}, rmsnorm {launches['rmsnorm']} "
+              f"(no model calls K6, as in the JAX package)")
+        if launches["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"prefill launched K7 "
+                                 f"{launches['flash_attention']} times, "
+                                 f"not once per layer ({cfg.num_layers})")
+        finite = bool(torch.isfinite(logits).all())
+        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not finite:
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"finite={finite}")
+        profile_steps(lambda k: prefill(params, batch), steps=1,
+                      what="warm prefill")
+
+        # the same prefill on the plain attention path, at batch 1 (its
+        # f32 scores at S 4096 take 2 GB a layer): print only, bf16 over
+        # 36 layers has no reference bound
+        plain = make_prefill_step(spec, dataclasses.replace(
+            cfg, attention_impl="xla"))(params, {"tokens": toks[:1]})
+        d = float((plain - logits[:1]).abs().max())
+        a, b = int(plain[0, -1].argmax()), int(logits[0, -1].argmax())
+        print(f"last-token logits, K7 path (row 0 of the batch) against the "
+              f"plain path (batch 1): max |diff| {d:.4e} of max |logit| "
+              f"{float(plain.abs().max()):.3f}; argmax {b} vs {a} "
+              f"({'agree' if a == b else 'differ'})")
+
+        # K6's own path: its entry point rmsnorm_apply(use_kernel=True) at
+        # the prefill's two norm shapes, the residual stream and qk-norm
+        phase("8b. K6 through nn.norm.rmsnorm_apply(use_kernel=True) at the "
+              "prefill's norm shapes (no model sets the flag, as in the JAX "
+              "package)")
+        x = embedding_apply(params["embed"], toks, compute_dtype=cfg.cdtype())
+        lp = {k: a[0].to(cfg.cdtype()) for k, a in params["layers"]["sub0"]
+              ["attn_norm"].items()}
+        qn = {k: a[0].to(cfg.cdtype()) for k, a in params["layers"]["sub0"]
+              ["attn"]["q_norm"].items()}
+        xq = x.reshape(LM_BATCH, LM_SEQ, cfg.num_heads, cfg.head_dim)
+        K.reset_launches()
+        y1 = rmsnorm_apply(lp, x, eps=cfg.norm_eps, use_kernel=True)
+        y2 = rmsnorm_apply(qn, xq, use_kernel=True)
+        torch.cuda.synchronize()
+        rms_launches = K.LAUNCHES["rmsnorm"]
+        for got, want in ((y1, rmsnorm_apply(lp, x, eps=cfg.norm_eps)),
+                          (y2, rmsnorm_apply(qn, xq))):
+            err, ok = compare(got, want, ulp(got.dtype),
+                              torch.finfo(got.dtype).tiny)
+            print(f"rmsnorm_apply {tuple(got.shape)} {got.dtype}: kernel "
+                  f"against plain max |diff| {err:.3e} (1 ulp)")
+            if not ok:
+                raise AssertionError("rmsnorm_apply(use_kernel=True) "
+                                     "disagrees with the plain path")
+        print(f"launches: rmsnorm {rms_launches}")
+        if rms_launches != 2:
+            raise AssertionError(f"rmsnorm_apply(use_kernel=True) launched "
+                                 f"K6 {rms_launches} times, not 2")
+    launches["rmsnorm"] = rms_launches
+    del params, logits, plain, x, xq, y1, y2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def single_greedy(spec, cfg, params, prompt, max_new, max_len):
+    """One request alone through ``decode_step`` at batch 1, greedy."""
+    state = spec.model.init_decode_state(cfg, 1, max_len,
+                                         dtype=torch.float32, device=DEV)
+    out, cur, t = [], prompt[0], 0
+    while len(out) < max_new:
+        lg, state = spec.model.decode_step(
+            params, state, torch.tensor([[cur]], device=DEV), cfg, cur_pos=t)
+        t += 1
+        if t < len(prompt):
+            cur = prompt[t]
+            continue
+        cur = int(lg[0, -1].argmax())
+        out.append(cur)
+    return out
+
+
+def lm_checks():
+    phase("9. LM checks at full width, 2 layers, f32 compute: K7 prefill "
+          "against the plain path, cached decode against the forward, "
+          "batched greedy against sequential")
+    import dataclasses
+    from repro_torch.serving import ContinuousBatcher, Request
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config(num_layers=2, compute_dtype="float32")
+    b, s = 2, 200
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=2)
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=DEV)
+        K.reset_launches()
+        full_k, _ = spec.model.forward(params, {"tokens": toks},
+                                       dataclasses.replace(
+                                           cfg, attention_impl="kernel"))
+        n_k7 = K.LAUNCHES["flash_attention"]
+        full_x, _ = spec.model.forward(params, {"tokens": toks}, cfg)
+        err, ok = compare(full_k, full_x, 2e-3, 2e-3)
+        print(f"prefill logits (B {b}, S {s}, every position), K7 against "
+              f"plain: max |diff| {err:.3e} (tol 2e-3; {n_k7} K7 launches)")
+        if not ok or n_k7 != cfg.num_layers:
+            raise AssertionError(f"K7 prefill differs from plain by {err} "
+                                 f"({n_k7} launches)")
+        state = spec.model.init_decode_state(cfg, b, s, dtype=torch.float32,
+                                             device=DEV)
+        dec = []
+        for t in range(s):
+            lg, state = spec.model.decode_step(params, state,
+                                               toks[:, t:t + 1], cfg,
+                                               cur_pos=t)
+            dec.append(lg)
+        err, ok = compare(torch.cat(dec, dim=1), full_x, 2e-3, 2e-3)
+        print(f"cached decode fed the same {s} tokens against the forward: "
+              f"max |diff| {err:.3e} (tol 2e-3)")
+        if not ok:
+            raise AssertionError(f"decode differs from forward by {err}")
+        del full_k, full_x, dec, state
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (3, 7, 5, 4, 6)]
+    batcher = ContinuousBatcher(spec, cfg, params, num_slots=2, max_len=64)
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+    for r in reqs:
+        batcher.submit(r)
+    done, ticks = batcher.run()
+    with torch.inference_mode():
+        seq = [single_greedy(spec, cfg, params, r.prompt, 6, 64)
+               for r in reqs]
+    same = [r.output == w for r, w in zip(reqs, seq)]
+    print(f"ContinuousBatcher: {len(done)} requests through 2 slots in "
+          f"{ticks} ticks; greedy outputs equal to sequential: {same}")
+    if len(done) != len(reqs) or not all(same):
+        raise AssertionError(f"batched greedy {[r.output for r in reqs]} "
+                             f"!= sequential {seq}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def decode_profile(spec, cfg, params, batch=4, steps=3):
+    """Where a full-width decode step's time goes: ``steps`` warm steps of
+    ``decode_step`` at ``batch`` under torch.profiler."""
+    with torch.inference_mode():
+        state = spec.model.init_decode_state(cfg, batch, 96,
+                                             dtype=torch.float32, device=DEV)
+        tok = torch.zeros((batch, 1), dtype=torch.long, device=DEV)
+        pos = iter(range(96))
+        for _ in range(2):
+            spec.model.decode_step(params, state, tok, cfg, cur_pos=next(pos))
+
+        def run(k):
+            for _ in range(k):
+                spec.model.decode_step(params, state, tok, cfg,
+                                       cur_pos=next(pos))
+        profile_steps(run, steps=steps, what=f"warm decode steps (B {batch})")
+
+
+def lm_serving():
+    phase("10. serving at full width (36 layers, bf16): serve(), the "
+          "ContinuousBatcher, and the serve entry point")
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import ContinuousBatcher, Request
+    out = serve("qwen3-8b", batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.min()) < 0 \
+            or int(out.max()) >= 151936:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    torch.cuda.empty_cache()
+
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config()
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=5)
+    rng = torch.Generator().manual_seed(6)
+    lens = (8, 64, 23, 40, 15, 57)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=16) for n in lens]
+    batcher = ContinuousBatcher(spec, cfg, params, num_slots=4, max_len=96)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, ticks = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(r.output) for r in done)
+    print(f"ContinuousBatcher: {len(done)} of {len(reqs)} requests (prompts "
+          f"{list(lens)}, 16 new tokens each) through 4 slots in {ticks} "
+          f"ticks, {wall:.2f} s ({wall / ticks * 1e3:.1f} ms/tick, "
+          f"{new / wall:.1f} generated tok/s, "
+          f"{(new + sum(lens)) / wall:.1f} tok/s with the prompts)")
+    if len(done) != len(reqs) or any(len(r.output) != 16 for r in done):
+        raise AssertionError("the batcher did not finish every request")
+    decode_profile(spec, cfg, params)
+    del params, batcher
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-8b"], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=300)
+    print(res.stdout.strip())
+    if res.returncode != 0 or "decoded" not in res.stdout:
+        raise AssertionError(f"serve entry point exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -778,15 +1205,26 @@ def main():
     card_vs_cpu()
     launches_sharded = sharded_path()
     sharded_entry_point()
+    launches_lm = lm_prefill()
+    lm_checks()
+    lm_serving()
+    path = {name: "phase 3 (single-device SFPL epoch)"
+            for name in SINGLE_DEVICE}
     for name in ("bucket_permute", "unbucket_permute", "quant_bucket_permute",
                  "dequant_unbucket_permute"):
         launches[name] = launches_sharded[name]
+        path[name] = "phase 6 (sharded SFPL epoch)"
+    launches["flash_attention"] = launches_lm["flash_attention"]
+    path["flash_attention"] = "phase 8 (one qwen3-8b prefill)"
+    launches["rmsnorm"] = launches_lm["rmsnorm"]
+    path["rmsnorm"] = "phase 8b (rmsnorm_apply(use_kernel=True))"
     lines = []
     for name, row in measured.items():
         route, source = ROUTE[name]
         lines.append(dict(
             name=name, route=route, source=source, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=row["max_abs_err"],
+            launches=launches[name], path=path[name],
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], dtype=row["dtype"], tol=row["tol"]))

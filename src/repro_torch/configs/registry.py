@@ -1,0 +1,63 @@
+"""Architecture registry: ``--arch <id>`` lookup.
+
+This slice of the port registers the transformer family's qwen3-8b; the
+other architectures of the JAX package, and ``input_specs`` (its dry-run
+shape stand-ins), come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable
+
+_REGISTRY = {}
+_FAMILIES = {"transformer": "repro_torch.models.transformer"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                      # transformer | xlstm | rglru | whisper
+    citation: str
+    make_config: Callable            # (**overrides) -> full-size config
+    make_smoke_config: Callable      # (**overrides) -> reduced config
+    supports_long_context: bool = False
+    notes: str = ""
+
+    @property
+    def model(self):
+        if self.family not in _FAMILIES:
+            raise NotImplementedError(
+                f"the {self.family} family is not ported yet (ROADMAP "
+                f"slice E)")
+        return importlib.import_module(_FAMILIES[self.family])
+
+
+def register(spec: ArchSpec):
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+_ARCH_MODULES = ["qwen3_8b"]
+_loaded = False
+
+
+def _ensure_loaded():
+    global _loaded
+    if not _loaded:
+        for m in _ARCH_MODULES:
+            importlib.import_module(f"repro_torch.configs.{m}")
+        _loaded = True
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; the "
+                       f"port has {sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def list_archs():
+    _ensure_loaded()
+    return sorted(_REGISTRY)

@@ -1,12 +1,14 @@
 """Carry parameter and state trees between the JAX package and the port.
 
-Trees are nested dicts of arrays, as ``R.init``, ``init_dcml_state`` and
-``init_fl_state`` produce them. Keys and nesting are kept. Only the conv
-kernels change layout: JAX stores them HWIO, ``(kh, kw, in, out)``; the
-port stores them OIHW, ``(out, in, kh, kw)``. A conv kernel is a leaf named
-``w`` with 4 dims, or 5 with a leading client axis; dense ``w`` leaves
-have 2 or 3. That holds for the momentum leaves of an optimizer state too,
-which mirror the params. ``to_numpy(from_jax_numpy(t))`` gives back ``t``
+Trees are nested dicts of arrays, as ``R.init``, ``init_dcml_state``,
+``init_fl_state`` and the transformer's ``init`` produce them. Keys and
+nesting are kept. Only the conv kernels change layout: JAX stores them
+HWIO, ``(kh, kw, in, out)``; the port stores them OIHW, ``(out, in, kh,
+kw)``. A conv kernel is a leaf named ``w`` with 4 dims, or 5 with a leading
+client axis; dense ``w`` leaves have 2, or 3 with a leading client axis or
+the transformer's stacked ``num_groups`` axis, and carry across as they
+are. That holds for the momentum leaves of an optimizer state too, which
+mirror the params. ``to_numpy(from_jax_numpy(t))`` gives back ``t``
 bit for bit.
 """
 from __future__ import annotations

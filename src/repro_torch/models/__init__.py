@@ -1,1 +1,2 @@
-"""Models of the port: the split CIFAR ResNet."""
+"""Models of the port: the split CIFAR ResNet and the decoder
+transformer."""

@@ -1,8 +1,10 @@
-"""Shared model pieces: the compute policy, the loss and accuracy."""
+"""Shared model pieces: the compute policy, the loss and accuracy, and the
+transformer config."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +74,83 @@ def accuracy_from_logits(logits, labels, *, ignore=IGNORE_LABEL):
     valid = labels != ignore
     hit = (logits.argmax(dim=-1) == labels) & valid
     return hit.sum() / valid.sum().clamp_min(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """One config covers dense / GQA / MoE / VLM decoder variants; this
+    slice of the port runs the dense ones (MoE layers and the VLM stub
+    frontend raise)."""
+    name: str = "transformer"
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 512
+    vocab_size: int = 1024
+    act: str = "silu"                       # "gelu" -> GeGLU
+    qk_norm: bool = False
+    attn_bias: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl
+    norm_eps: float = 1e-6
+    norm_scale_offset: float = 0.0          # gemma: 1.0 ((1 + scale))
+    embed_scale: bool = False               # gemma: x *= sqrt(d_model)
+    tie_embeddings: bool = True
+    logit_softcap: float = 0.0              # 0 = off
+    # MoE
+    num_experts: int = 0
+    d_ff_dense: int = 0                     # dense-layer MLP width; 0 = d_ff
+    moe_layer_period: int = 1
+    moe_shared_expert: bool = True
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # attention pattern (llama4 iRoPE: 3 local chunked + 1 global)
+    sliding_window: Optional[int] = None
+    global_attn_period: int = 0             # 0 = all layers same window
+    # execution
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    attention_impl: str = "xla"             # "xla" | "kernel" (K7)
+    remat: bool = True
+    scan_layers: bool = True
+    mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
+    vision_tokens: int = 0                  # > 0 expects vision_embeds
+
+    @property
+    def group_size(self) -> int:
+        """Layers per stacked group (lcm of the layer-pattern periods)."""
+        g = 1
+        if self.num_experts and self.moe_layer_period > 1:
+            g = math.lcm(g, self.moe_layer_period)
+        if self.global_attn_period:
+            g = math.lcm(g, self.global_attn_period)
+        return g
+
+    def layer_kind(self, idx: int) -> dict:
+        """Static description of layer ``idx``'s flavour."""
+        is_moe = bool(self.num_experts) and (
+            (idx + 1) % max(self.moe_layer_period, 1) == 0)
+        if self.global_attn_period:
+            is_global = (idx + 1) % self.global_attn_period == 0
+            window = None if is_global else self.sliding_window
+        else:
+            window = self.sliding_window
+        return {"moe": is_moe, "window": window}
+
+    def pdtype(self):
+        return getattr(torch, self.param_dtype)
+
+    def cdtype(self):
+        return getattr(torch, self.compute_dtype)
+
+
+def constrain_act(x, cfg, kind="residual"):
+    """Activation sharding constraint: the identity on one device
+    (``cfg.mesh_axes`` None). The sharded LM is a later slice."""
+    del kind
+    if getattr(cfg, "mesh_axes", None):
+        raise NotImplementedError(
+            "mesh_axes: the sharded LM belongs to a later slice of the port")
+    return x

@@ -24,8 +24,15 @@ def _fans(shape, in_axis=-2, out_axis=-1):
     return shape[in_axis] * receptive, shape[out_axis] * receptive
 
 
+def _device(gen):
+    return None if gen is None else gen.device
+
+
 def _normal(gen, shape, std, dtype):
-    return (torch.randn(shape, generator=gen) * std).to(dtype)
+    """Drawn on the generator's device: a CUDA generator makes the weights
+    on the card, with no host draw and copy."""
+    return (torch.randn(shape, generator=gen, device=_device(gen))
+            * std).to(dtype)
 
 
 def lecun_normal(gen, shape, dtype=torch.float32, in_axis=-2, out_axis=-1):
@@ -38,11 +45,13 @@ def he_normal(gen, shape, dtype=torch.float32, in_axis=-2, out_axis=-1):
     return _normal(gen, shape, math.sqrt(2.0 / max(fan_in, 1)), dtype)
 
 
+def normal_init(gen, shape, stddev=0.02, dtype=torch.float32):
+    return _normal(gen, shape, stddev, dtype)
+
+
 def zeros(gen, shape, dtype=torch.float32):
-    del gen
-    return torch.zeros(shape, dtype=dtype)
+    return torch.zeros(shape, dtype=dtype, device=_device(gen))
 
 
 def ones(gen, shape, dtype=torch.float32):
-    del gen
-    return torch.ones(shape, dtype=dtype)
+    return torch.ones(shape, dtype=dtype, device=_device(gen))

@@ -1,4 +1,5 @@
-"""BatchNorm with explicit running statistics (RMSD / CMSD at inference).
+"""BatchNorm with explicit running statistics (RMSD / CMSD at inference),
+and RMSNorm.
 
 Running statistics live in a separate ``state`` dict, as in the JAX
 package, so the aggregation policies can treat them apart from the
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
 from repro_torch.nn.init import ones, zeros
 
 
@@ -138,3 +140,23 @@ def batchnorm_act_apply(params, state, x, *, training, relu=True,
     if relu:
         y32 = torch.clamp_min(y32, 0.0)
     return y32.to(x.dtype), new_state
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+
+
+def rmsnorm_init(gen, dim, *, dtype=torch.float32):
+    return {"scale": ones(gen, (dim,), dtype)}
+
+
+def rmsnorm_apply(params, x, *, eps=1e-6, use_kernel=False,
+                  scale_offset=0.0):
+    """RMSNorm over the last axis in f32, returned in ``x.dtype``;
+    ``scale_offset=1.0`` gives Gemma's ``(1 + scale)`` convention.
+
+    The plain path is the K6 kernel's plain version; ``use_kernel`` routes
+    through the kernel's wrapper (K6, forward only; it runs the plain
+    version for a CPU tensor). As in the JAX package, no model sets it."""
+    rms = rms_ops.rmsnorm if use_kernel else rms_ref.rmsnorm_ref
+    return rms(x, params["scale"], eps=eps, scale_offset=scale_offset)

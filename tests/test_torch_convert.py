@@ -1,16 +1,22 @@
-"""numpy (JAX layout) -> torch -> numpy is bitwise for the engine's trees,
-and the port's own trees have the JAX trees' keys and shapes."""
+"""numpy (JAX layout) -> torch -> numpy is bitwise for the engine's trees
+and the transformer's, and the port's own trees have the JAX trees' keys
+and shapes."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as j_get_arch
 from repro.core import engine as JE
 from repro.models import resnet as JR
 from repro.optim import sgd_momentum as j_sgd
+from repro_torch.configs import get_arch
 from repro_torch.convert import from_jax_numpy, to_numpy
 from repro_torch.core import engine as TE
 from repro_torch.models import resnet as TR
+from repro_torch.models.common import TransformerConfig
 from repro_torch.optim import sgd_momentum as t_sgd
 
 
@@ -60,6 +66,56 @@ def test_port_init_has_jax_tree_structure(trees):
     ours = _leaves_with_paths(to_numpy(st))
     theirs = _leaves_with_paths(jax.tree_util.tree_map(np.asarray,
                                                        trees["dcml"]))
+    assert [p for p, _ in ours] == [p for p, _ in theirs]
+    for (path, u), (_, v) in zip(ours, theirs):
+        assert u.shape == v.shape and u.dtype == v.dtype, path
+
+
+@pytest.fixture(scope="module")
+def lm_params():
+    """qwen3-8b's smoke config: per-group params stacked on a leading
+    num_groups axis, so every dense ``w`` leaf of a layer has 3 dims."""
+    spec = j_get_arch("qwen3-8b")
+    cfg = spec.make_smoke_config()
+    return cfg, jax.tree_util.tree_map(
+        np.asarray, spec.model.init(jax.random.PRNGKey(2), cfg))
+
+
+def test_transformer_tree_round_trips_bitwise(lm_params):
+    _, tree = lm_params
+    back = to_numpy(from_jax_numpy(tree))
+    a, b = _leaves_with_paths(tree), _leaves_with_paths(back)
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, u), (_, v) in zip(a, b):
+        assert u.dtype == v.dtype and u.shape == v.shape, path
+        assert u.tobytes() == v.tobytes(), path
+
+
+def test_stacked_dense_weights_are_not_conv_kernels(lm_params):
+    """The conv rule (a 4- or 5-dim ``w``) leaves the transformer's 3-dim
+    stacked dense weights as they are: same shape, same values."""
+    cfg, tree = lm_params
+    t = from_jax_numpy(tree)
+    wq = tree["layers"]["sub0"]["attn"]["wq"]["w"]
+    assert wq.shape == (cfg.num_layers, cfg.d_model,
+                        cfg.num_heads * cfg.head_dim)
+    for name in ("wq", "wk", "wv", "wo"):
+        w = tree["layers"]["sub0"]["attn"][name]["w"]
+        assert w.ndim == 3
+        np.testing.assert_array_equal(
+            t["layers"]["sub0"]["attn"][name]["w"].numpy(), w)
+    np.testing.assert_array_equal(t["layers"]["sub0"]["mlp"]["wi"]["w"]
+                                  .numpy(), tree["layers"]["sub0"]["mlp"]
+                                  ["wi"]["w"])
+
+
+def test_port_transformer_init_has_jax_tree_structure(lm_params):
+    cfg, tree = lm_params
+    tcfg = TransformerConfig(**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(cfg)})
+    ours = _leaves_with_paths(to_numpy(get_arch("qwen3-8b").model.init(
+        torch.Generator().manual_seed(0), tcfg)))
+    theirs = _leaves_with_paths(tree)
     assert [p for p, _ in ours] == [p for p, _ in theirs]
     for (path, u), (_, v) in zip(ours, theirs):
         assert u.shape == v.shape and u.dtype == v.dtype, path

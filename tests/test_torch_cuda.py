@@ -10,6 +10,9 @@ quantize/dequantize gathers (K5a/K5b) bitwise in bytes, scales and
 values; bn_act 1 ulp of the working type; xent 1e-5 relative (f32 math)
 forward, 1e-5 relative or 1 bf16 ulp backward. The sharded epoch at
 world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
+rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
+and 2e-2 in bf16 (tests/test_kernels.py's bounds), and a 2-layer f32
+prefill through K7 within 2e-3 of the plain attention path.
 """
 import pytest
 import torch
@@ -18,6 +21,10 @@ from repro_torch import kernels as K
 from repro_torch.kernels.bn_act import ops as bn_ops, ref as bn_ref
 from repro_torch.kernels.collector_permute import ops as perm_ops
 from repro_torch.kernels.collector_permute import ref as perm_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.quant_permute import ops as quant_ops
 from repro_torch.kernels.quant_permute import ref as quant_ref
 from repro_torch.kernels.softmax_xent import ops as xent_ops
@@ -182,3 +189,73 @@ def test_sharded_epoch_world1_matches_dense(dev):
     finally:
         ED.close_data_group()
     assert float((l_mesh - l_dense).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,offset", [((37, 100), 0.0), ((33, 300), 1.0),
+                                          ((1, 8), 0.0), ((4, 7, 96), 1.0),
+                                          ((2048, 4096), 0.0),
+                                          ((8192, 128), 0.0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel(dev, shape, offset, dtype):
+    x = torch.randn(shape, device=dev).to(dtype)
+    scale = torch.randn(shape[-1], device=dev) * 0.1 + 1.0
+    before = K.LAUNCHES["rmsnorm"]
+    y = rms_ops.rmsnorm(x, scale, scale_offset=offset)
+    assert K.LAUNCHES["rmsnorm"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    want = rms_ref.rmsnorm_ref(x, scale, scale_offset=offset)
+    if dtype == torch.float32:
+        assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _within(y, want, torch.finfo(dtype).eps)
+
+
+@pytest.mark.parametrize("b,s,hk,d,causal,window", [
+    (1, 16, (4, 2), 32, True, None), (2, 64, (4, 4), 64, False, None),
+    (1, 100, (8, 1), 32, True, 16), (2, 128, (4, 2), 64, True, None),
+    (1, 100, (4, 4), 64, False, 16), (2, 100, (8, 1), 128, True, None),
+    (1, 1000, (32, 8), 128, True, None), (1, 300, (4, 2), 128, True, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
+    h, k = hk
+    q, kk, v = (torch.randn(b, s, n, d, device=dev).to(dtype)
+                for n in (h, k, k))
+    before = K.LAUNCHES["flash_attention"]
+    out = flash_ops.flash_attention(q, kk, v, causal=causal, window=window)
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    want = flash_ref.attention_ref(q, kk, v, causal=causal, window=window)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(dev):
+    """q, k, v as views of one fused projection (no copy), like a packed
+    qkv: the kernel reads them through their strides."""
+    qkv = torch.randn(2, 77, 4 + 2 + 2, 64, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = flash_ops.flash_attention(q, k, v, causal=True)
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    assert torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_prefill_through_the_kernel_matches_plain(dev):
+    """qwen3-8b's layout at 2 layers and reduced width, f32: the prefill
+    with attention through K7 against the plain attention path."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config(num_layers=2, d_model=512, num_heads=8,
+                           num_kv_heads=2, d_ff=1024, vocab_size=1000,
+                           compute_dtype="float32")
+    params = spec.model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=dev)
+    K.reset_launches()
+    with torch.inference_mode():
+        got = make_prefill_step(spec, dataclasses.replace(
+            cfg, attention_impl="kernel"))(params, {"tokens": toks})
+        assert K.LAUNCHES["flash_attention"] == cfg.num_layers
+        want = make_prefill_step(spec, cfg)(params, {"tokens": toks})
+    assert torch.allclose(got, want, rtol=2e-3, atol=2e-3)

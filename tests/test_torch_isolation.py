@@ -1,7 +1,8 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
+"""The port stands alone: importing every module of ``repro_torch``,
 running a one-step SFPL epoch, single-device and sharded (world size 1,
-int8 wire), loads neither ``jax`` nor ``repro``; and the entry points run
-on CUDA by default, raising when it is absent."""
+int8 wire), a qwen3-8b smoke prefill through the kernel attention path and
+a 3-token ``serve`` loads neither ``jax`` nor ``repro``; and the entry
+points run on CUDA by default, raising when it is absent."""
 import os
 import subprocess
 import sys
@@ -42,6 +43,20 @@ st, losses = ED.sfpl_epoch_sharded(
     num_clients=n, batch_size=b, wire_dtype="int8", device="cpu")
 ED.close_data_group()
 assert losses.shape == (1,) and bool(torch.isfinite(losses).all())
+
+import dataclasses
+from repro_torch.configs import get_arch
+from repro_torch.launch.serve import serve
+from repro_torch.launch.steps import make_prefill_step
+spec = get_arch("qwen3-8b")
+lm_cfg = dataclasses.replace(spec.make_smoke_config(), attention_impl="kernel")
+lm_params = spec.model.init(torch.Generator().manual_seed(0), lm_cfg)
+toks = torch.randint(0, lm_cfg.vocab_size, (2, 8))
+logits = make_prefill_step(spec, lm_cfg)(lm_params, {"tokens": toks})
+assert logits.shape == (2, 1, lm_cfg.vocab_size)
+assert bool(torch.isfinite(logits).all())
+out = serve("qwen3-8b", batch=2, prompt_len=4, gen=3, device="cpu")
+assert out.shape == (2, 3)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("MODULES", len(names))
@@ -62,12 +77,14 @@ def test_port_imports_neither_jax_nor_repro():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core import engine as E
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train_paper
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
     for call in (lambda: resolve_device(None),
                  lambda: train_paper(epochs=1),
+                 lambda: serve("qwen3-8b", gen=1),
                  lambda: E.sfpl_epoch(None, {}, {}, None, None, None,
                                       num_clients=1, batch_size=1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

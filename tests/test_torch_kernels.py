@@ -8,7 +8,10 @@ plan's bucket gathers (K4a/K4b) bitwise, their scatter-add gradients
 1e-6; the quantize/dequantize gathers (K5a/K5b) bitwise, in quantized
 bytes, scales and dequantized values, with their straight-through
 gradient 1e-6; bn_act 1e-6 in f32 and 1 bf16 ulp; softmax_xent value and
-logits-grad 1e-5 in f32 and 1e-2 in bf16. The shapes are
+logits-grad 1e-5 in f32 and 1e-2 in bf16; rmsnorm (K6) 1e-5 in f32 and
+2e-2 in bf16; flash attention (K7): the port's plain version 1e-5 of the
+JAX package's ``attention_ref`` in f32, and 2e-3 (f32) / 2e-2 (bf16) of
+the Pallas kernel, tests/test_kernels.py's bounds. The shapes are
 tests/test_kernels.py's fuzz shapes (ragged widths, repeated indices,
 B != R). Each differentiable ``autograd.Function`` also passes
 ``torch.autograd.gradcheck`` in float64 on the plain path.
@@ -21,6 +24,9 @@ import torch
 
 from repro.core import wire as JW
 from repro.kernels.bn_act.ops import bn_act as j_bn_act
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref as j_attn_ref
+from repro.kernels.rmsnorm.ops import rmsnorm as j_rmsnorm
 from repro.kernels.collector_permute.ops import (
     bucket_permute as j_bucket, bucket_permute_ad as j_bucket_ad,
     collector_permute as j_permute, collector_permute_ad as j_permute_ad,
@@ -32,7 +38,10 @@ from repro.kernels.quant_permute.ops import (
 from repro.kernels.softmax_xent.ops import softmax_xent as j_xent
 from repro_torch.kernels.bn_act import ops as bn_ops
 from repro_torch.kernels.collector_permute import ops as perm_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.quant_permute import ops as quant_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.softmax_xent import ops as xent_ops
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -353,6 +362,90 @@ def test_softmax_xent_plain_matches_pallas(rows, v, ignore, dtype):
                                rtol=tol, atol=tol)
     if ignore == "all":
         assert float(val_t.detach()) == 0.0 and not g_t.float().abs().any()
+
+
+# --------------------------------------------------------------------------
+# K6 rmsnorm
+
+@pytest.mark.parametrize("shape,offset", [((1, 8), 0.0), ((33, 100), 1.0),
+                                          ((7, 300), 0.0), ((12, 128), 1.0),
+                                          ((3, 5, 256), 0.0)])
+def test_rmsnorm_plain_matches_pallas(shape, offset):
+    rng = np.random.default_rng(shape[0] * 7 + shape[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    scale = (rng.standard_normal(shape[-1]) * 0.1 + 1.0).astype(np.float32)
+    want = j_rmsnorm(jnp.asarray(x), jnp.asarray(scale), scale_offset=offset,
+                     interpret=True)
+    got = rms_ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale),
+                          scale_offset=offset)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rmsnorm_bf16_3d_matches_pallas():
+    rng = np.random.default_rng(3)
+    xj, xt = _pair(rng.standard_normal((4, 7, 96)).astype(np.float32),
+                   "bfloat16")
+    want = j_rmsnorm(xj, jnp.ones((96,)), interpret=True)
+    got = rms_ops.rmsnorm(xt, torch.ones(96))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# K7 flash attention
+
+FLASH_SHAPES = [  # (b, s, (h, k), d, causal, window): the fuzz ranges
+    (1, 16, (4, 2), 32, True, None), (2, 64, (4, 4), 64, False, None),
+    (1, 100, (8, 1), 32, True, 16), (2, 128, (4, 2), 64, True, None),
+    (1, 100, (4, 4), 64, False, 16), (2, 16, (8, 1), 64, False, None)]
+
+
+@pytest.mark.parametrize("b,s,hk,d,causal,window", FLASH_SHAPES)
+def test_flash_attention_plain_matches_jax(b, s, hk, d, causal, window):
+    """The port's plain version against the JAX oracle (1e-5) and the
+    Pallas kernel in interpret mode (2e-3); on CPU tensors the wrapper
+    (the kernel impl of the attention layer) is the plain version."""
+    h, k = hk
+    rng = np.random.default_rng(b * 1000 + s + d)
+    q, kk, v = (rng.standard_normal((b, s, n, d)).astype(np.float32)
+                for n in (h, k, k))
+    jq, jk, jv = map(jnp.asarray, (q, kk, v))
+    tq, tk, tv = map(torch.from_numpy, (q, kk, v))
+    ref_t = flash_ref.attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(
+        _np(ref_t), np.asarray(j_attn_ref(jq, jk, jv, causal=causal,
+                                          window=window)),
+        rtol=1e-5, atol=1e-5)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert torch.equal(got, ref_t)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(j_flash(jq, jk, jv, causal=causal,
+                                     window=window, interpret=True)),
+        rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attention_bf16_matches_pallas():
+    rng = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.standard_normal((2, 64, n, 32)).astype(np.float32),
+              "bfloat16") for n in (4, 2, 2))
+    want = j_flash(jq, jk, jv, causal=True, interpret=True)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_forward_only_kernels_refuse_a_gradient():
+    """The JAX package defines no VJP for K6 or K7; neither wrapper
+    differentiates."""
+    x = torch.randn(2, 8, 4, 32, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        flash_ops.flash_attention(x, x[:, :, :2], x[:, :, :2]).sum().backward()
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        rms_ops.rmsnorm(x, torch.ones(32)).sum().backward()
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,324 @@
+"""The port's LM inference path against the JAX package's on the same
+inputs (CPU): the layers, qwen3-8b's smoke prefill and cached decode, and
+the continuous-batching scheduler.
+
+Inputs are made with numpy from a seed; parameters are drawn by the JAX
+package's ``init`` and carried across through ``repro_torch.convert``.
+Tolerances: modules 1e-5 in f32 (the reference's own f32 bound,
+tests/test_submesh.py); model logits 1e-4 in f32 (20 times tighter than
+the reference's decode-to-forward bound, tests/test_models_consistency.py)
+and 2e-2 with bf16 compute (tests/test_kernels.py's bf16 bound; see the
+bf16 test for how it is held); greedy tokens exactly equal
+(tests/test_serving.py).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as j_get_arch
+from repro.launch.steps import (make_decode_step as j_decode_step,
+                                make_prefill_step as j_prefill_step)
+from repro.nn import attention as JA
+from repro.nn import linear as JL, mlp as JM, norm as JN, rope as JR
+from repro.serving import ContinuousBatcher as JBatcher, Request as JRequest
+from repro_torch.configs import get_arch
+from repro_torch.convert import from_jax_numpy
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.common import TransformerConfig
+from repro_torch.nn import attention as TA
+from repro_torch.nn import linear as TL, mlp as TM, norm as TN, rope as TR
+from repro_torch.serving import ContinuousBatcher, Request
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+LOGITS_F32 = dict(atol=1e-4, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _jnp_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# layers
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_rmsnorm_apply_matches_jax(offset, use_kernel):
+    rng = np.random.default_rng(int(offset) + 2 * use_kernel)
+    x = _normal(rng, 3, 5, 100)
+    p = {"scale": 1.0 + 0.1 * _normal(rng, 100)}
+    want = JN.rmsnorm_apply(p, jnp.asarray(x), scale_offset=offset)
+    got = TN.rmsnorm_apply(from_jax_numpy(p), torch.from_numpy(x),
+                           scale_offset=offset, use_kernel=use_kernel)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+
+
+def test_apply_rope_matches_jax():
+    rng = np.random.default_rng(1)
+    x = _normal(rng, 2, 7, 3, 16)
+    pos = rng.integers(0, 4096, (2, 7)).astype(np.int32)
+    for theta in (1e4, 1e6):
+        want = JR.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=theta)
+        got = TR.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                            theta=theta)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", True),
+                                       ("relu2", False)])
+def test_mlp_apply_matches_jax(act, gated):
+    rng = np.random.default_rng(2)
+    p = _jnp_tree(JM.mlp_init(jax.random.PRNGKey(3), 16, 40, gated=gated))
+    x = _normal(rng, 2, 5, 16)
+    want = JM.mlp_apply(p, jnp.asarray(x), act=act)
+    got = TM.mlp_apply(from_jax_numpy(p), torch.from_numpy(x), act=act)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+    assert sorted(TM.mlp_init(torch.Generator(), 16, 40, gated=gated)) \
+        == sorted(p)
+
+
+def test_dense_without_bias_and_embeddings_match_jax():
+    rng = np.random.default_rng(4)
+    p = _jnp_tree(JL.dense_init(jax.random.PRNGKey(0), 16, 8,
+                                use_bias=False))
+    assert list(TL.dense_init(torch.Generator(), 16, 8, use_bias=False)) \
+        == ["w"]
+    x = _normal(rng, 3, 16)
+    np.testing.assert_allclose(
+        _np(TL.dense_apply(from_jax_numpy(p), torch.from_numpy(x))),
+        np.asarray(JL.dense_apply(p, jnp.asarray(x))), **F32)
+
+    table = {"table": _normal(rng, 50, 16)}
+    ids = rng.integers(0, 50, (2, 7))
+    for cd_j, cd_t in ((None, None), (jnp.bfloat16, torch.bfloat16)):
+        want = JL.embedding_apply(table, jnp.asarray(ids), compute_dtype=cd_j)
+        got = TL.embedding_apply(from_jax_numpy(table), torch.from_numpy(ids),
+                                 compute_dtype=cd_t)
+        # gather-then-cast is cast-then-gather, bit for bit
+        assert np.array_equal(_np(got), np.asarray(want, np.float32))
+    h = _normal(rng, 2, 7, 16)
+    np.testing.assert_allclose(
+        _np(TL.embedding_attend(from_jax_numpy(table), torch.from_numpy(h))),
+        np.asarray(JL.embedding_attend(table, jnp.asarray(h))), **F32)
+
+
+def _attn_cfgs(**kw):
+    base = dict(d_model=32, num_heads=4, num_kv_heads=2, head_dim=8,
+                qk_norm=True, rope_theta=1e6)
+    base.update(kw)
+    return JA.AttnConfig(**base), TA.AttnConfig(**base)
+
+
+@pytest.mark.parametrize("window,kv_chunk", [(None, 4096), (4, 4096),
+                                             (None, 4), (3, 4)])
+def test_attention_apply_xla_matches_jax(window, kv_chunk):
+    """kv_chunk 4 over 9 keys runs the JAX package's scan branch (three
+    padded chunks) against the port's ragged chunk loop."""
+    jc, tc = _attn_cfgs(sliding_window=window, kv_chunk=kv_chunk)
+    p = _jnp_tree(JA.attention_init(jax.random.PRNGKey(5), jc))
+    rng = np.random.default_rng(6)
+    x = _normal(rng, 2, 9, 32)
+    pos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9))
+    want = JA.attention_apply(p, jnp.asarray(x), jc,
+                              positions=jnp.asarray(pos))
+    got = TA.attention_apply(from_jax_numpy(p), torch.from_numpy(x), tc,
+                             positions=torch.from_numpy(pos.copy()))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+
+
+def test_attention_kv_override_matches_jax():
+    jc, tc = _attn_cfgs()
+    p = _jnp_tree(JA.attention_init(jax.random.PRNGKey(7), jc))
+    rng = np.random.default_rng(8)
+    x = _normal(rng, 2, 6, 32)
+    k, v = _normal(rng, 2, 5, 2, 8), _normal(rng, 2, 5, 2, 8)
+    mask = np.array([[1, 1, 0, 1, 0], [0, 1, 1, 1, 1]], bool)
+    want = JA.attention_apply(p, jnp.asarray(x), jc, positions=None,
+                              kv_override=(jnp.asarray(k), jnp.asarray(v),
+                                           jnp.asarray(mask)))
+    got = TA.attention_apply(
+        from_jax_numpy(p), torch.from_numpy(x), tc, positions=None,
+        kv_override=(torch.from_numpy(k), torch.from_numpy(v),
+                     torch.from_numpy(mask)))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("case", ["global", "ring", "per_slot", "int8"])
+def test_attention_decode_matches_jax(case):
+    """Token by token through the cache: the global cache with a scalar
+    position, the sliding-window ring (3 slots over 7 tokens), per-slot
+    positions that differ by row, and the int8 cache with fp16 scales."""
+    window = 3 if case == "ring" else None
+    jc, tc = _attn_cfgs(sliding_window=window)
+    p = _jnp_tree(JA.attention_init(jax.random.PRNGKey(9), jc))
+    tp = from_jax_numpy(p)
+    B, T = 3, 7
+    slots = 3 if case == "ring" else 16
+    jdt, tdt = ((jnp.int8, torch.int8) if case == "int8"
+                else (jnp.float32, torch.float32))
+    jcache = JA.init_kv_cache(B, slots, 2, 8, dtype=jdt)
+    tcache = TA.init_kv_cache(B, slots, 2, 8, dtype=tdt)
+    rng = np.random.default_rng(10)
+    start = np.array([0, 2, 5], np.int32)
+    for t in range(T):
+        x = _normal(rng, B, 1, 32)
+        if case == "per_slot":
+            jpos, tpos = jnp.asarray(start + t), torch.from_numpy(start + t)
+        else:
+            jpos, tpos = t, t
+        want, jcache = JA.attention_decode(p, jnp.asarray(x), jc,
+                                           cache=jcache, cur_pos=jpos)
+        got, tcache = TA.attention_decode(tp, torch.from_numpy(x), tc,
+                                          cache=tcache, cur_pos=tpos)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+    assert np.array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
+    if case == "int8":
+        for name in ("k", "v", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(tcache[name].float().numpy(),
+                                          np.asarray(jcache[name],
+                                                     np.float32))
+
+
+# --------------------------------------------------------------------------
+# qwen3-8b smoke model
+
+@pytest.fixture(scope="module")
+def smoke():
+    """qwen3-8b's smoke config (2 layers, d 256), params drawn by JAX."""
+    jspec = j_get_arch("qwen3-8b")
+    cfg = jspec.make_smoke_config(compute_dtype="float32")
+    params = _jnp_tree(jspec.model.init(jax.random.PRNGKey(0), cfg))
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                              (2, 12)).astype(np.int32)
+    return jspec, params, toks
+
+
+def _cfgs(jspec, **kw):
+    jcfg = jspec.make_smoke_config(**kw)
+    tspec = get_arch("qwen3-8b")
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg)}
+    if fields["attention_impl"] == "pallas_interpret":
+        fields["attention_impl"] = "kernel"
+    return jcfg, tspec, TransformerConfig(**fields)
+
+
+@pytest.mark.parametrize("jax_impl,port_impl", [
+    ("xla", "xla"), ("xla", "kernel"), ("pallas_interpret", "kernel")])
+def test_prefill_logits_match_jax_f32(smoke, jax_impl, port_impl):
+    jspec, params, toks = smoke
+    jcfg, tspec, tcfg = _cfgs(jspec, compute_dtype="float32",
+                              attention_impl=jax_impl)
+    tcfg = dataclasses.replace(tcfg, attention_impl=port_impl)
+    want = jax.jit(j_prefill_step(jspec, jcfg))(params,
+                                                {"tokens": jnp.asarray(toks)})
+    got = make_prefill_step(tspec, tcfg)(from_jax_numpy(params),
+                                         {"tokens": torch.from_numpy(toks)})
+    assert tuple(got.shape) == want.shape == (2, 1, jcfg.vocab_size)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **LOGITS_F32)
+
+
+def test_prefill_logits_match_jax_bf16(smoke):
+    """bf16 compute, each attention path against its JAX counterpart
+    (the kernel path against ``pallas_interpret``): within 2e-2 of the
+    JAX package's bf16 logits relative to the logits' scale (max |logit|
+    about 3), and elementwise no farther from them than the JAX package's
+    own bf16 logits are from its f32 logits. Elementwise the port and JAX
+    differ by up to 3.2e-2 here, under that own gap (3.6e-2 and 3.9e-2):
+    the frameworks round bf16 at
+    different places (XLA on the CPU keeps f32 across fused elementwise
+    ops, and the matmuls sum in another order), so an elementwise 2e-2
+    sits under the noise of bf16 itself (ROADMAP §3). ``pytest -s``
+    prints the gaps."""
+    jspec, params, toks = smoke
+    batch = {"tokens": jnp.asarray(toks)}
+    exact = np.asarray(jax.jit(j_prefill_step(jspec, jspec.make_smoke_config(
+        compute_dtype="float32")))(params, batch))
+    tp = from_jax_numpy(params)
+    # each port path against its JAX counterpart (kernel: pallas_interpret)
+    for jax_impl in ("xla", "pallas_interpret"):
+        jcfg, tspec, tcfg = _cfgs(jspec, attention_impl=jax_impl)
+        assert tcfg.cdtype() == torch.bfloat16   # bf16 compute, f32 params
+        want = np.asarray(jax.jit(j_prefill_step(jspec, jcfg))(params, batch))
+        own = float(np.abs(want - exact).max())
+        got = make_prefill_step(tspec, tcfg)(
+            tp, {"tokens": torch.from_numpy(toks)})
+        assert got.shape == want.shape
+        gap = float(np.abs(_np(got) - want).max())
+        scale = float(np.abs(want).max())
+        print(f"bf16 logits, {tcfg.attention_impl}: port vs JAX {gap:.4e} "
+              f"(max |logit| {scale:.3f}); JAX bf16 vs JAX f32 {own:.4e}")
+        assert gap <= 2e-2 * scale, (jax_impl, gap, scale)
+        assert gap <= own, (jax_impl, gap, own)
+
+
+def test_decode_logits_match_jax_f32(smoke):
+    jspec, params, toks = smoke
+    jcfg, tspec, tcfg = _cfgs(jspec, compute_dtype="float32")
+    jstate = jspec.model.init_decode_state(jcfg, 2, 16, dtype=jnp.float32)
+    tstate = tspec.model.init_decode_state(tcfg, 2, 16, dtype=torch.float32)
+    jstep = jax.jit(j_decode_step(jspec, jcfg))
+    tstep = make_decode_step(tspec, tcfg)
+    tp = from_jax_numpy(params)
+    for t in range(toks.shape[1]):
+        want, jstate = jstep(params, jstate, jnp.asarray(toks[:, t:t + 1]),
+                             jnp.int32(t))
+        got, tstate = tstep(tp, tstate, torch.from_numpy(toks[:, t:t + 1]),
+                            t)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **LOGITS_F32)
+
+
+def test_continuous_batcher_greedy_matches_jax(smoke):
+    """Five requests of mixed prompt lengths through two slots (slot
+    recycling): the same greedy tokens as the JAX package's scheduler."""
+    jspec, params, _ = smoke
+    jcfg, tspec, tcfg = _cfgs(jspec, compute_dtype="float32")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, jcfg.vocab_size, n).tolist()
+               for n in (3, 7, 5, 4, 6)]
+    jb = JBatcher(jspec, jcfg, params, num_slots=2, max_len=64)
+    tb = ContinuousBatcher(tspec, tcfg, from_jax_numpy(params), num_slots=2,
+                           max_len=64)
+    for p in prompts:
+        jb.submit(JRequest(prompt=list(p), max_new_tokens=6))
+        tb.submit(Request(prompt=list(p), max_new_tokens=6))
+    jdone, jticks = jb.run()
+    tdone, tticks = tb.run()
+    assert tticks == jticks and len(tdone) == len(jdone) == 5
+    assert [r.prompt for r in tdone] == [r.prompt for r in jdone]
+    assert [r.output for r in tdone] == [r.output for r in jdone]
+
+
+def test_later_slices_raise_naming_them():
+    """MoE layers, the VLM frontend (M-RoPE, vision tokens) and SFPL LM
+    training are later slices: each raises, naming its slice."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator().manual_seed(0)
+    small = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
+                 head_dim=16, d_ff=64, vocab_size=64)
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        T.init(gen, TransformerConfig(num_experts=4, **small))
+    cfg = TransformerConfig(**small)
+    params = T.init(gen, cfg)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="LM-training slice"):
+        T.forward(params, {"tokens": toks}, cfg,
+                  collector_perm=torch.arange(1))
+    for kw in (dict(mrope_sections=(2, 3, 3)), dict(vision_tokens=2)):
+        with pytest.raises(NotImplementedError, match="VLM slice"):
+            T.forward(params, {"tokens": toks},
+                      dataclasses.replace(cfg, **kw))
+    with pytest.raises(KeyError, match="not yet ported"):
+        get_arch("xlstm-1.3b")
