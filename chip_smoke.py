@@ -10,7 +10,10 @@ on one device (phases 3-5) and the sharded SFPL epoch on a world-size-1
 NCCL group with the int8 wire (phases 6-7), then qwen3-8b at full width:
 the prefill through the flash-attention kernel (phase 8), 2-layer f32
 checks of prefill, cached decode and the continuous-batching scheduler
-(phase 9), and serving (phase 10). It prints, as its last line,
+(phase 9), and serving (phase 10); then xlstm-1.3b at full width: the
+prefill through the sLSTM-scan kernel (phase 11), 1-group f32 checks of
+prefill and cached decode (phase 12), and serving (phase 13). Each phase
+prints its seconds. It prints, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
 exits non-zero at once.
@@ -63,6 +66,8 @@ from repro_torch.kernels.quant_permute import kernel as quant_k  # noqa
 from repro_torch.kernels.quant_permute import ref as quant_ref   # noqa
 from repro_torch.kernels.rmsnorm import kernel as rms_k      # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rms_ref        # noqa: E402
+from repro_torch.kernels.slstm_scan import kernel as slstm_k  # noqa: E402
+from repro_torch.kernels.slstm_scan import ref as slstm_ref   # noqa: E402
 from repro_torch.kernels.softmax_xent import kernel as xent_k  # noqa: E402
 from repro_torch.kernels.softmax_xent import ref as xent_ref   # noqa: E402
 from repro_torch.tree import tree_leaves                      # noqa: E402
@@ -80,6 +85,7 @@ REPLACES = {
         "src/repro/kernels/quant_permute/kernel.py:89",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:30",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
+    "slstm_scan": "src/repro/kernels/slstm_scan/kernel.py:73",
 }
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bn_act": ("cuda", bn_k.SOURCE),
@@ -90,7 +96,8 @@ ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "quant_bucket_permute": ("cuda", quant_k.SOURCE),
          "dequant_unbucket_permute": ("cuda", quant_k.SOURCE),
          "rmsnorm": ("triton", rms_k.SOURCE),
-         "flash_attention": ("cuda", flash_k.SOURCE)}
+         "flash_attention": ("cuda", flash_k.SOURCE),
+         "slstm_scan": ("cuda", slstm_k.SOURCE)}
 # the kernels of the single-device path (phases 3-5); the sharded path
 # (phase 6) adds the other four
 SINGLE_DEVICE = ("collector_permute", "bn_act", "xent_fwd", "xent_bwd")
@@ -101,11 +108,18 @@ SYMBOL = {"collector_permute": "permute_rows", "bn_act": "bn_act_kernel",
           "unbucket_permute": "recv_gather_rows",
           "quant_bucket_permute": "quant_bucket_rows",
           "dequant_unbucket_permute": "dequant_recv_rows",
-          "rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd"}
+          "rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd",
+          "slstm_scan": "slstm_scan_kernel"}
+_CLOCK = {"start": time.perf_counter(), "last": None}
 
 
 def phase(name):
-    print(f"\n=== {name}", flush=True)
+    """Start a phase: print the seconds the previous one took."""
+    now = time.perf_counter()
+    if _CLOCK["last"] is not None:
+        print(f"(phase took {now - _CLOCK['last']:.1f} s)")
+    _CLOCK["last"] = now
+    print(f"\n=== {name} [t = {now - _CLOCK['start']:.1f} s]", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -479,7 +493,7 @@ def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
 
 
 # The prefill cut: the repo's prefill_32k shape is B 32 x S 32768; here
-# B 4 x S 4096 (PERF.md section 4).
+# B 4 x S 4096 (PERF.md section 4), for qwen3-8b and xlstm-1.3b alike.
 LM_BATCH, LM_SEQ = 4, 4096
 
 
@@ -512,6 +526,55 @@ def kernels_lm():
     print("flash_attention fuzz grid (S 16/100, H/K 4/2 8/1 4/4, D 32/64, "
           "causal or not, window none/16): max err " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
+    return main
+
+
+def check_slstm(b, s, h, dh, scale=None, time=True):
+    """K8 against its plain version on random (B, S, H, Dh) f32 inputs,
+    within 3e-4 (tests/test_kernels.py's kernel-to-ref bound). R is drawn
+    at the model's scale, 1/sqrt(Dh), unless ``scale`` (the JAX test's
+    0.3) is given. Returns the max error; with ``time``, also times and
+    prints the row (work: 2 B 4 H Dh^2 S FLOPs of recurrent products)."""
+    gen = torch.Generator(device=DEV).manual_seed(b * 1000 + s + dh)
+    pres = [torch.randn(b, s, h, dh, device=DEV, generator=gen)
+            for _ in range(4)]
+    R = torch.randn(4, h, dh, dh, device=DEV, generator=gen) * (
+        dh ** -0.5 if scale is None else scale)
+
+    def plain():
+        return slstm_ref.slstm_scan_ref(*pres, R, slstm_ref.initial_state(
+            b, h, dh, DEV))[0]
+    got = slstm_k.slstm_scan(*pres, R)
+    want = plain()
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, 3e-4, 3e-4)
+    if not ok:
+        raise AssertionError(f"slstm_scan {(b, s, h, dh)}: max err {err} "
+                             f"(tol 3e-4)")
+    if not time:
+        return err
+    record("slstm_scan", (b, s, h, dh), torch.float32, err, ok,
+           "3e-4 abs + rel",
+           lambda: slstm_k.slstm_scan(*pres, R), plain,
+           5 * got.numel() * 4 + R.numel() * 4, 2 * b * 4 * h * dh * dh * s,
+           heavy=True)
+    return err
+
+
+def kernels_xlstm():
+    """K8 at xlstm-1.3b's prefill shape (phase 11: B 4 x S 4096, 4 heads,
+    Dh 512) and the fuzz grid of tests/test_kernels.py plus Dh 64 (the
+    smoke config's)."""
+    check_slstm(LM_BATCH, LM_SEQ, 4, 512)
+    main = {"slstm_scan": RESULTS[-1]}
+    worst = 0.0
+    for b in range(1, 6):
+        for s in (4, 20, 64, 70):
+            for h, dh in ((2, 8), (4, 16), (1, 32), (2, 64)):
+                worst = max(worst, check_slstm(b, s, h, dh, scale=0.3,
+                                               time=False))
+    print(f"slstm_scan fuzz grid (B 1-5, S 4/20/64/70, H/Dh 2/8 4/16 1/32 "
+          f"2/64, R at 0.3): max err {worst:.3e} (tol 3e-4)")
     return main
 
 
@@ -553,6 +616,7 @@ def kernels_vs_plain():
                 main["dequant_unbucket_permute"] = RESULTS[-1]
             check_quant(37, 105, dtype, wire, (4, 10), 1)
     main.update(kernels_lm())
+    main.update(kernels_xlstm())
     return main
 
 
@@ -932,9 +996,9 @@ def sharded_entry_point():
 # --------------------------------------------------------------------------
 # phases 8-10: qwen3-8b prefill and serving
 
-def lm_init(cfg, seed):
+def lm_init(cfg, seed, arch="qwen3-8b"):
     """Random weights drawn on the card from ``seed`` (no host draw)."""
-    spec = get_arch("qwen3-8b")
+    spec = get_arch(arch)
     t0 = time.perf_counter()
     params = spec.model.init(torch.Generator(device=DEV).manual_seed(seed),
                              cfg)
@@ -1197,6 +1261,167 @@ def lm_serving():
                              f"{res.stderr[-4000:]}")
 
 
+# --------------------------------------------------------------------------
+# phases 11-13: xlstm-1.3b prefill and serving
+
+XLSTM_PARAMS = 1_391_102_288      # jax.eval_shape of the JAX package's init
+
+
+def xlstm_prefill():
+    phase(f"11. xLSTM prefill: xlstm-1.3b full width (48 blocks: 42 mLSTM, "
+          f"6 sLSTM), f32 params, bf16 compute, sLSTM through K8, "
+          f"make_prefill_step, B {LM_BATCH} x S {LM_SEQ}")
+    import dataclasses
+    import gc
+    from repro_torch.launch.steps import make_prefill_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory in use before the phase (qwen3-8b freed): "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    spec = get_arch("xlstm-1.3b")
+    cfg = spec.make_config(slstm_impl="kernel")
+    n_slstm = cfg.num_layers // cfg.slstm_every
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=0, arch="xlstm-1.3b")
+        n = sum(t.numel() for t in tree_leaves(params))
+        if n != XLSTM_PARAMS:
+            raise AssertionError(f"xlstm-1.3b has {n} params, the JAX "
+                                 f"package {XLSTM_PARAMS}")
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                             generator=gen, device=DEV)
+        batch = {"tokens": toks}
+        prefill = make_prefill_step(spec, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        warm = min(walls)
+        n_tok = LM_BATCH * LM_SEQ
+        print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
+              f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"launches in one prefill: slstm_scan "
+              f"{launches['slstm_scan']} (one per sLSTM block, {n_slstm})")
+        if launches["slstm_scan"] != n_slstm:
+            raise AssertionError(f"prefill launched K8 "
+                                 f"{launches['slstm_scan']} times, not "
+                                 f"once per sLSTM block ({n_slstm})")
+        finite = bool(torch.isfinite(logits).all())
+        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) \
+                or not finite:
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"finite={finite}")
+        profile_steps(lambda k: prefill(params, batch), steps=1,
+                      what="warm prefill")
+
+        # the same prefill on the plain sLSTM path: print only, bf16 over
+        # 48 blocks has no reference bound
+        t0 = time.perf_counter()
+        plain = make_prefill_step(spec, dataclasses.replace(
+            cfg, slstm_impl="xla"))(params, batch)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        d = float((plain - logits).abs().max())
+        scale = float(plain.abs().max())
+        same = (plain[:, -1].argmax(-1) == logits[:, -1].argmax(-1)).tolist()
+        print(f"last-token logits, K8 path against the plain sLSTM path "
+              f"({t_plain:.1f} s): max |diff| {d:.4e} of max |logit| "
+              f"{scale:.3f} ({d / scale:.3e}); argmax equal per row {same}")
+    del params, logits, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_checks():
+    phase("12. xLSTM checks at full width, 1 group (7 mLSTM + 1 sLSTM), f32 "
+          "compute: K8 prefill against the plain path, cached decode "
+          "against the forward")
+    import dataclasses
+    spec = get_arch("xlstm-1.3b")
+    cfg = spec.make_config(num_layers=8, compute_dtype="float32")
+    b, s = 2, 200
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=2, arch="xlstm-1.3b")
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=DEV)
+        K.reset_launches()
+        full_k, _ = spec.model.forward(params, {"tokens": toks},
+                                       dataclasses.replace(
+                                           cfg, slstm_impl="kernel"))
+        n_k8 = K.LAUNCHES["slstm_scan"]
+        full_x, _ = spec.model.forward(params, {"tokens": toks}, cfg)
+        err, ok = compare(full_k, full_x, 2e-3, 2e-3)
+        print(f"prefill logits (B {b}, S {s}, every position), K8 against "
+              f"plain: max |diff| {err:.3e} (tol 2e-3; {n_k8} K8 launch)")
+        if not ok or n_k8 != 1:
+            raise AssertionError(f"K8 prefill differs from plain by {err} "
+                                 f"({n_k8} launches)")
+        state = spec.model.init_decode_state(cfg, b, device=DEV)
+        dec = []
+        t0 = time.perf_counter()
+        for t in range(s):
+            lg, state = spec.model.decode_step(params, state,
+                                               toks[:, t:t + 1], cfg)
+            dec.append(lg)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        err, ok = compare(torch.cat(dec, dim=1), full_x, 5e-3, 5e-3)
+        print(f"cached decode fed the same {s} tokens against the forward: "
+              f"max |diff| {err:.3e} (tol 5e-3; {t_dec / s * 1e3:.1f} "
+              f"ms/step at 8 blocks)")
+        if not ok:
+            raise AssertionError(f"decode differs from forward by {err}")
+    del params, full_k, full_x, dec, state
+    torch.cuda.empty_cache()
+
+
+def xlstm_serving():
+    phase("13. xLSTM serving at full width (48 blocks, bf16): serve(), a "
+          "decode profile, and the serve entry point")
+    from repro_torch.launch.serve import serve
+    out = serve("xlstm-1.3b", batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.min()) < 0 \
+            or int(out.max()) >= 50304:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    torch.cuda.empty_cache()
+    spec = get_arch("xlstm-1.3b")
+    cfg = spec.make_config()
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=5, arch="xlstm-1.3b")
+        state = spec.model.init_decode_state(cfg, 4, device=DEV)
+        logits, _ = spec.model.decode_step(
+            params, state, torch.zeros((4, 1), dtype=torch.long,
+                                       device=DEV), cfg)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("full-width decode logits are not finite")
+    decode_profile(spec, cfg, params)
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "xlstm-1.3b", "--full"], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=300)
+    print(res.stdout.strip())
+    if res.returncode != 0 or "decoded" not in res.stdout:
+        raise AssertionError(f"serve entry point exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -1208,6 +1433,10 @@ def main():
     launches_lm = lm_prefill()
     lm_checks()
     lm_serving()
+    launches_x = xlstm_prefill()
+    xlstm_checks()
+    xlstm_serving()
+    phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}
     for name in ("bucket_permute", "unbucket_permute", "quant_bucket_permute",
@@ -1218,6 +1447,8 @@ def main():
     path["flash_attention"] = "phase 8 (one qwen3-8b prefill)"
     launches["rmsnorm"] = launches_lm["rmsnorm"]
     path["rmsnorm"] = "phase 8b (rmsnorm_apply(use_kernel=True))"
+    launches["slstm_scan"] = launches_x["slstm_scan"]
+    path["slstm_scan"] = "phase 11 (one xlstm-1.3b prefill)"
     lines = []
     for name, row in measured.items():
         route, source = ROUTE[name]

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
-This slice of the port registers the transformer family's qwen3-8b; the
-other architectures of the JAX package, and ``input_specs`` (its dry-run
-shape stand-ins), come with later slices.
+The port registers the transformer family's qwen3-8b and the xLSTM
+family's xlstm-1.3b; the other architectures of the JAX package, and
+``input_specs`` (its dry-run shape stand-ins), come with later slices.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import importlib
 from typing import Callable
 
 _REGISTRY = {}
-_FAMILIES = {"transformer": "repro_torch.models.transformer"}
+_FAMILIES = {"transformer": "repro_torch.models.transformer",
+             "xlstm": "repro_torch.models.xlstm"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +39,7 @@ def register(spec: ArchSpec):
     return spec
 
 
-_ARCH_MODULES = ["qwen3_8b"]
+_ARCH_MODULES = ["qwen3_8b", "xlstm_1_3b"]
 _loaded = False
 
 

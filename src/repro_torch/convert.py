@@ -4,21 +4,32 @@ Trees are nested dicts of arrays, as ``R.init``, ``init_dcml_state``,
 ``init_fl_state`` and the transformer's ``init`` produce them. Keys and
 nesting are kept. Only the conv kernels change layout: JAX stores them
 HWIO, ``(kh, kw, in, out)``; the port stores them OIHW, ``(out, in, kh,
-kw)``. A conv kernel is a leaf named ``w`` with 4 dims, or 5 with a leading
-client axis; dense ``w`` leaves have 2, or 3 with a leading client axis or
-the transformer's stacked ``num_groups`` axis, and carry across as they
-are. That holds for the momentum leaves of an optimizer state too, which
-mirror the params. ``to_numpy(from_jax_numpy(t))`` gives back ``t``
-bit for bit.
+kw)``. A conv kernel is the ``w`` leaf of a conv layer (``conv1``,
+``conv2``, a residual ``proj``, or one conv layer's own params), with 4
+dims or 5 with a leading client axis. Every other leaf carries across as
+it is: dense ``w`` leaves, and the xLSTM's block-diagonal ``wq`` / ``wk``
+/ ``wv`` weights, whose ``(num_groups, blocks, 4, 4)`` leaves have 4 dims
+but are no conv. That holds for the momentum leaves of an optimizer state
+too, which mirror the params. ``to_numpy(from_jax_numpy(t))`` gives back
+``t`` bit for bit.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
+# the parents of conv kernels in the ResNet tree (models/resnet.py)
+_CONV_PARENT = re.compile(r"conv\d+|proj")
+
 
 def _is_conv(path, a):
-    return bool(path) and path[-1] == "w" and a.ndim in (4, 5)
+    """A 4- or 5-dim ``w`` of a conv layer: under a conv parent, or the
+    ``w`` of a lone conv layer's params (path ``("w",)``)."""
+    return (bool(path) and path[-1] == "w" and a.ndim in (4, 5)
+            and (len(path) == 1
+                 or _CONV_PARENT.fullmatch(path[-2]) is not None))
 
 
 def _walk(tree, fn, path=()):

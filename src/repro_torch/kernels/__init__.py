@@ -14,7 +14,7 @@ counts, drive a path, and read which kernels that path went through.
 LAUNCHES = {"collector_permute": 0, "bn_act": 0, "xent_fwd": 0,
             "xent_bwd": 0, "bucket_permute": 0, "unbucket_permute": 0,
             "quant_bucket_permute": 0, "dequant_unbucket_permute": 0,
-            "rmsnorm": 0, "flash_attention": 0}
+            "rmsnorm": 0, "flash_attention": 0, "slstm_scan": 0}
 
 
 def reset_launches():

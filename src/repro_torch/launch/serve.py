@@ -1,9 +1,11 @@
-"""Serving driver of the port: batched decode with a KV cache, the prompt
-teacher-forced through the cache token by token, then greedy or
+"""Serving entry point of the port: batched decode with a KV cache
+(transformer family) or per-block recurrent states (xLSTM), the prompt
+teacher-forced through the decode step token by token, then greedy or
 temperature sampling.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
-        [--batch 4] [--prompt-len 16] [--gen 16] [--full] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        [--arch qwen3-8b | --arch xlstm-1.3b] [--batch 4] [--prompt-len 16] \
+        [--gen 16] [--full] [--device cpu]
 
 The smoke config by default, the architecture's full width with
 ``--full``. Parameters are drawn from ``--seed`` on the device itself (no
@@ -38,7 +40,7 @@ def serve(arch_id, *, batch=4, prompt_len=16, gen=16, smoke=True,
     batch of ``batch``. Returns the generated tokens (batch, gen) int64."""
     dev = resolve_device(device)
     spec = get_arch(arch_id)
-    if spec.family != "transformer":
+    if spec.family not in ("transformer", "xlstm"):
         raise NotImplementedError(f"serving {spec.family} is not ported yet")
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     model = spec.model
@@ -48,6 +50,7 @@ def serve(arch_id, *, batch=4, prompt_len=16, gen=16, smoke=True,
         params = model.init(rng, cfg)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=rng, device=dev)
+        # the xLSTM's recurrent state ignores max_len and dtype
         state = model.init_decode_state(cfg, batch, max_len,
                                         dtype=torch.float32, device=dev)
         decode = make_decode_step(spec, cfg)
@@ -67,8 +70,8 @@ def serve(arch_id, *, batch=4, prompt_len=16, gen=16, smoke=True,
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"{arch_id} ({'smoke' if smoke else 'full'} config): decoded "
           f"{tuple(gen_toks.shape)} in {dt:.2f}s "
-          f"({batch * gen / dt:.1f} tok/s, {max_len - 1} decode steps, on "
-          f"{where})")
+          f"({batch * gen / dt:.1f} tok/s, {max_len - 1} decode steps, "
+          f"{dt / (max_len - 1) * 1e3:.1f} ms/step, on {where})")
     return gen_toks
 
 

@@ -1,2 +1,2 @@
-"""Models of the port: the split CIFAR ResNet and the decoder
-transformer."""
+"""Models of the port: the split CIFAR ResNet, the decoder transformer and
+the xLSTM."""

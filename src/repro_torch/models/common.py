@@ -1,5 +1,6 @@
-"""Shared model pieces: the compute policy, the loss and accuracy, and the
-transformer config."""
+"""Shared model pieces: the compute policy, the loss and accuracy, the
+transformer config, and the sharding constraints (identities on one
+device)."""
 from __future__ import annotations
 
 import dataclasses
@@ -151,6 +152,17 @@ def constrain_act(x, cfg, kind="residual"):
     (``cfg.mesh_axes`` None). The sharded LM is a later slice."""
     del kind
     if getattr(cfg, "mesh_axes", None):
+        raise NotImplementedError(
+            "mesh_axes: the sharded LM belongs to a later slice of the port")
+    return x
+
+
+def constrain_dims(x, mesh_axes, roles):
+    """Per-dim sharding constraint (``roles``: "dp" | "tp" | None per
+    dim): the identity on one device (``mesh_axes`` None). The sharded LM
+    is a later slice."""
+    del roles
+    if mesh_axes:
         raise NotImplementedError(
             "mesh_axes: the sharded LM belongs to a later slice of the port")
     return x

@@ -15,10 +15,15 @@ def dense_init(gen, in_dim, out_dim, *, use_bias=True, dtype=torch.float32,
 
 
 def dense_apply(params, x, *, compute_dtype=None):
+    """``x @ w (+ b)``. Mixed dtypes promote as in JAX: an f32 input on
+    bf16 weights gives an f32 product (the xLSTM gate projections)."""
     w = params["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
+    elif x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = x @ w
     if "b" in params:
         y = y + params["b"].to(y.dtype)

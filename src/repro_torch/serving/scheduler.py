@@ -5,7 +5,9 @@ A fixed pool of B decode slots runs one decode step per tick with a
 ``cur_pos``). Requests join whenever a slot frees up; prompt tokens are
 teacher-forced through the same decode path, per slot, so other slots keep
 generating while one is still prefilling, and finished requests leave
-without stalling the batch. Greedy or temperature sampling per request.
+without stalling the batch. Each request is greedy (``temperature`` 0) or
+sampled; a sampled request draws from ``softmax(logits / 0.8)`` whatever
+its ``temperature``, as the JAX package's scheduler does.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from typing import List, Optional
 import torch
 
 from repro_torch.launch.steps import make_decode_step
+
+# the temperature of every sampled request (src/repro/serving/scheduler.py)
+SAMPLE_TEMPERATURE = 0.8
 
 
 @dataclasses.dataclass
@@ -72,17 +77,16 @@ class ContinuousBatcher:
             cache["pos"][:, s] = -1
 
     def _sample(self, logits):
-        """Per-slot next tokens: argmax where the slot's request is greedy,
-        else a draw at the request's own temperature."""
-        temps = [r.temperature if r is not None else 0.0 for r in self.active]
+        """Per-slot next tokens: argmax where the slot's request is greedy
+        (``temperature`` 0), else a draw from ``softmax(logits / 0.8)``:
+        the JAX package's scheduler samples every request at 0.8."""
+        hot = [r is not None and r.temperature > 0 for r in self.active]
         nxt = logits.argmax(dim=-1)
-        if any(t > 0 for t in temps):
-            t = torch.tensor([max(t, 1e-6) for t in temps],
-                             device=logits.device)
-            probs = torch.softmax(logits.float() / t[:, None], dim=-1)
+        if any(hot):
+            probs = torch.softmax(logits.float() / SAMPLE_TEMPERATURE, dim=-1)
             drawn = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
-            hot = torch.tensor([t > 0 for t in temps], device=logits.device)
-            nxt = torch.where(hot, drawn, nxt)
+            nxt = torch.where(torch.tensor(hot, device=logits.device), drawn,
+                              nxt)
         return nxt.tolist()
 
     @torch.inference_mode()

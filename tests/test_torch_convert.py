@@ -119,3 +119,23 @@ def test_port_transformer_init_has_jax_tree_structure(lm_params):
     assert [p for p, _ in ours] == [p for p, _ in theirs]
     for (path, u), (_, v) in zip(ours, theirs):
         assert u.shape == v.shape and u.dtype == v.dtype, path
+
+
+def test_xlstm_tree_round_trips_bitwise_with_jax_shapes():
+    """xlstm-1.3b's smoke tree: the block-diagonal ``wq`` / ``wk`` / ``wv``
+    leaves are 4-dim ``w`` leaves but no conv kernels; every leaf keeps its
+    JAX shape, and the round trip is bitwise."""
+    spec = j_get_arch("xlstm-1.3b")
+    cfg = spec.make_smoke_config()
+    tree = jax.tree_util.tree_map(
+        np.asarray, spec.model.init(jax.random.PRNGKey(3), cfg))
+    assert tree["layers"]["sub0"]["wq"]["w"].ndim == 4
+    t = from_jax_numpy(tree)
+    for (path, u), (_, v) in zip(_leaves_with_paths(tree),
+                                 _leaves_with_paths(to_numpy(t))):
+        assert u.dtype == v.dtype and u.shape == v.shape, path
+        assert u.tobytes() == v.tobytes(), path
+    for name in ("wq", "wk", "wv"):
+        w = tree["layers"]["sub0"][name]["w"]
+        np.testing.assert_array_equal(
+            t["layers"]["sub0"][name]["w"].numpy(), w)

@@ -12,7 +12,11 @@ forward, 1e-5 relative or 1 bf16 ulp backward. The sharded epoch at
 world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
 rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
 and 2e-2 in bf16 (tests/test_kernels.py's bounds), and a 2-layer f32
-prefill through K7 within 2e-3 of the plain attention path.
+prefill through K7 within 2e-3 of the plain attention path. The sLSTM scan
+(K8) 3e-4 of its plain version (tests/test_kernels.py's kernel-to-ref
+bound) on the fuzz grid, strided inputs and every batch block; a 1-group
+f32 xLSTM prefill through K8 within 2e-3 of the plain sLSTM path
+(tests/test_kernels.py's bound for the same comparison).
 """
 import pytest
 import torch
@@ -27,6 +31,9 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.quant_permute import ops as quant_ops
 from repro_torch.kernels.quant_permute import ref as quant_ref
+from repro_torch.kernels.slstm_scan import kernel as slstm_k
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
+from repro_torch.kernels.slstm_scan import ref as slstm_ref
 from repro_torch.kernels.softmax_xent import ops as xent_ops
 
 pytestmark = pytest.mark.cuda
@@ -258,4 +265,71 @@ def test_prefill_through_the_kernel_matches_plain(dev):
             cfg, attention_impl="kernel"))(params, {"tokens": toks})
         assert K.LAUNCHES["flash_attention"] == cfg.num_layers
         want = make_prefill_step(spec, cfg)(params, {"tokens": toks})
+    assert torch.allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("s", [4, 20, 64, 70])
+@pytest.mark.parametrize("hd", [(2, 8), (4, 16), (1, 32), (2, 64)])
+def test_slstm_scan_kernel(dev, b, s, hd):
+    h, dh = hd
+    g = torch.Generator(device=dev).manual_seed(b * 31 + s)
+    pres = [torch.randn(b, s, h, dh, device=dev, generator=g)
+            for _ in range(4)]
+    R = torch.randn(4, h, dh, dh, device=dev, generator=g) * 0.3
+    before = K.LAUNCHES["slstm_scan"]
+    out = slstm_ops.slstm_scan(*pres, R)
+    assert K.LAUNCHES["slstm_scan"] == before + 1
+    want, _ = slstm_ref.slstm_scan_ref(*pres, R, slstm_ref.initial_state(
+        b, h, dh, dev))
+    assert out.dtype == torch.float32 and out.shape == pres[0].shape
+    assert torch.allclose(out, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("b,s,h,dh", [(3, 33, 2, 64), (5, 9, 4, 512)])
+def test_slstm_scan_kernel_strided(dev, b, s, h, dh):
+    """The four preactivations as views of one fused projection (no copy),
+    at a small head and at the model's Dh 512."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    fused = torch.randn(b, s, h, 4 * dh, device=dev, generator=g)
+    pres = [fused[..., k * dh:(k + 1) * dh] for k in range(4)]
+    R = torch.randn(4, h, dh, dh, device=dev, generator=g) * dh ** -0.5
+    out = slstm_k.slstm_scan(*pres, R)
+    want, _ = slstm_ref.slstm_scan_ref(*pres, R, slstm_ref.initial_state(
+        b, h, dh, dev))
+    assert torch.allclose(out, want, rtol=3e-4, atol=3e-4)
+
+
+def test_slstm_scan_kernel_rejects_what_it_does_not_take(dev):
+    x = torch.zeros(1, 3, 1, 8, device=dev)
+    R = torch.zeros(4, 1, 8, 8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        slstm_k.slstm_scan(x.double(), x, x, x, R)
+    with pytest.raises(ValueError, match="Dh"):
+        big = torch.zeros(1, 3, 1, 1024, device=dev)
+        slstm_k.slstm_scan(big, big, big, big,
+                           torch.zeros(4, 1, 1024, 1024, device=dev))
+    with pytest.raises(ValueError, match="R"):
+        slstm_k.slstm_scan(x, x, x, x, R[:, :, :4])
+
+
+def test_xlstm_prefill_through_the_kernel_matches_plain(dev):
+    """xlstm-1.3b's layout at one group (7 mLSTM, 1 sLSTM) and reduced
+    width, f32: the prefill with the sLSTM through K8 against the plain
+    sLSTM path, every position."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_arch("xlstm-1.3b")
+    cfg = spec.make_config(num_layers=8, d_model=256, vocab_size=1000,
+                           chunk_len=64, compute_dtype="float32")
+    params = spec.model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=dev)
+    K.reset_launches()
+    with torch.inference_mode():
+        got, _ = spec.model.forward(params, {"tokens": toks},
+                                    dataclasses.replace(cfg,
+                                                        slstm_impl="kernel"))
+        assert K.LAUNCHES["slstm_scan"] == 1
+        want, _ = spec.model.forward(params, {"tokens": toks}, cfg)
     assert torch.allclose(got, want, rtol=2e-3, atol=2e-3)

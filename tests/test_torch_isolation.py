@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch``,
 running a one-step SFPL epoch, single-device and sharded (world size 1,
-int8 wire), a qwen3-8b smoke prefill through the kernel attention path and
-a 3-token ``serve`` loads neither ``jax`` nor ``repro``; and the entry
-points run on CUDA by default, raising when it is absent."""
+int8 wire), a qwen3-8b smoke prefill through the kernel attention path, an
+xlstm-1.3b smoke prefill through the sLSTM kernel path, and a 3-token
+``serve`` of each loads neither ``jax`` nor ``repro``; and the entry points
+run on CUDA by default, raising when it is absent."""
 import os
 import subprocess
 import sys
@@ -57,6 +58,16 @@ assert logits.shape == (2, 1, lm_cfg.vocab_size)
 assert bool(torch.isfinite(logits).all())
 out = serve("qwen3-8b", batch=2, prompt_len=4, gen=3, device="cpu")
 assert out.shape == (2, 3)
+
+x_spec = get_arch("xlstm-1.3b")
+x_cfg = x_spec.make_smoke_config(slstm_impl="kernel")
+x_params = x_spec.model.init(torch.Generator().manual_seed(0), x_cfg)
+x_toks = torch.randint(0, x_cfg.vocab_size, (2, 8))
+x_logits = make_prefill_step(x_spec, x_cfg)(x_params, {"tokens": x_toks})
+assert x_logits.shape == (2, 1, x_cfg.vocab_size)
+assert bool(torch.isfinite(x_logits).all())
+out = serve("xlstm-1.3b", batch=2, prompt_len=4, gen=3, device="cpu")
+assert out.shape == (2, 3)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("MODULES", len(names))
@@ -85,6 +96,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for call in (lambda: resolve_device(None),
                  lambda: train_paper(epochs=1),
                  lambda: serve("qwen3-8b", gen=1),
+                 lambda: serve("xlstm-1.3b", gen=1),
                  lambda: E.sfpl_epoch(None, {}, {}, None, None, None,
                                       num_clients=1, batch_size=1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

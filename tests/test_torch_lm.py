@@ -301,6 +301,31 @@ def test_continuous_batcher_greedy_matches_jax(smoke):
     assert [r.output for r in tdone] == [r.output for r in jdone]
 
 
+@pytest.mark.parametrize("temps", [(2.0,), (0.0, 0.5, 2.0)])
+def test_continuous_batcher_samples_at_jax_temperature(temps):
+    """A sampled request draws from ``softmax(logits / 0.8)`` whatever its
+    ``temperature``, as the JAX package's scheduler does
+    (src/repro/serving/scheduler.py): exactly the draw of
+    ``torch.multinomial`` from the same seed. A greedy slot takes the
+    argmax."""
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_smoke_config(compute_dtype="float32")
+    params = spec.model.init(torch.Generator().manual_seed(0), cfg)
+    logits = 3 * torch.from_numpy(_normal(np.random.default_rng(3),
+                                          len(temps), cfg.vocab_size))
+    for seed in range(4):
+        batcher = ContinuousBatcher(spec, cfg, params, num_slots=len(temps),
+                                    max_len=8, seed=seed)
+        batcher.active = [Request(prompt=[1], temperature=t) for t in temps]
+        got = batcher._sample(logits)
+        drawn = torch.multinomial(torch.softmax(logits / 0.8, dim=-1), 1,
+                                  generator=torch.Generator().manual_seed(
+                                      seed))
+        want = [int(drawn[s, 0]) if t > 0 else int(logits[s].argmax())
+                for s, t in enumerate(temps)]
+        assert got == want, seed
+
+
 def test_later_slices_raise_naming_them():
     """MoE layers, the VLM frontend (M-RoPE, vision tokens) and SFPL LM
     training are later slices: each raises, naming its slice."""
@@ -321,4 +346,4 @@ def test_later_slices_raise_naming_them():
             T.forward(params, {"tokens": toks},
                       dataclasses.replace(cfg, **kw))
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("xlstm-1.3b")
+        get_arch("recurrentgemma-9b")
