@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -153,9 +154,72 @@ def device_and_build():
           f"{time.perf_counter() - t0:.1f} s; triton cache "
           f"{os.environ['TRITON_CACHE_DIR']}")
     for line in log.splitlines():
+        entry = entry_name(line)
+        if entry:
+            print(f"  entry {entry}")
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    kernel_resources()
     return smi
+
+
+def entry_name(line):
+    """``name<D>`` of a template kernel that ptxas reports compiling: the
+    length-prefixed identifier before ``ILi<D>E`` in its mangled name."""
+    m = re.search(r"entry function '(\S+?)'", line)
+    i = m.group(1).find("ILi") if m else -1
+    if i < 0:
+        return None
+    sym = m.group(1)
+    for j in range(i):
+        n = re.match(r"\d+", sym[j:])
+        if n and j + len(n.group()) + int(n.group()) == i:
+            arg = re.match(r"ILi(\d+)E", sym[i:]).group(1)
+            return f"{sym[j + len(n.group()):i]}<{arg}>"
+    return None
+
+
+def triton_resources(jit, grid, *args, **meta):
+    """Registers, shared memory and CTAs an SM of one Triton kernel, from
+    its compiled binary and the driver's occupancy query (the launch that
+    compiles it counts nowhere)."""
+    import ctypes
+    ck = jit[grid](*args, **meta)
+    torch.cuda.synchronize()
+    smem = int(ck.metadata.shared)
+    ctas = ctypes.c_int(0)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    err = cuda.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctypes.byref(ctas), ctypes.c_void_p(ck.function),
+        ctypes.c_int(32 * meta["num_warps"]), ctypes.c_size_t(smem))
+    if err != 0:
+        raise RuntimeError(f"cuOccupancyMaxActiveBlocksPerMultiprocessor: "
+                           f"CUresult {err}")
+    return dict(registers=ck.n_regs, spills=ck.n_spills, smem=smem,
+                warps=meta["num_warps"], ctas_per_sm=ctas.value)
+
+
+def kernel_resources():
+    """K7's kernels (the runtime's attributes and occupancy) and K3f/K3b's
+    at the main path's 800 x 100 bf16 (their compiled binaries)."""
+    for d in (128, 64, 32):
+        print(f"  K7 bf16 D {d}: {json.dumps(flash_k.resources(d))}")
+    _, fwd, bwd = xent_k._kernels()
+    x = torch.randn(POOL, CLASSES, device=DEV).to(torch.bfloat16)
+    lab = torch.zeros(POOL, dtype=torch.int64, device=DEV)
+    nll, lse = (torch.empty(POOL, device=DEV) for _ in range(2))
+    br, bv, warps = xent_k._fwd_blocks(CLASSES)
+    res = triton_resources(fwd, (math.ceil(POOL / br),), x, lab, nll, lse,
+                           POOL, CLASSES, x.stride(0), BLOCK_R=br,
+                           BLOCK_V=bv, num_warps=warps)
+    print(f"  K3f {POOL} x {CLASSES} bf16, {math.ceil(POOL / br)} programs "
+          f"of {br} rows: {json.dumps(res)}")
+    br, bv = xent_k._blocks(CLASSES)
+    res = triton_resources(bwd, (math.ceil(POOL / br),), x, lab, lse, nll,
+                           torch.empty_like(x), POOL, CLASSES, x.stride(0),
+                           x.stride(0), BLOCK_R=br, BLOCK_V=bv, num_warps=4)
+    print(f"  K3b {POOL} x {CLASSES} bf16, {math.ceil(POOL / br)} programs "
+          f"of {br} rows: {json.dumps(res)}")
 
 
 # --------------------------------------------------------------------------
@@ -450,12 +514,18 @@ def sdpa_gqa(q, k, v, causal):
 
 
 def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
-                library=False):
+                library=False, packed=False):
     """K7 against its plain version on random (B, S, heads, D) inputs:
-    2e-3 in f32, 2e-2 in bf16 (tests/test_kernels.py's bounds). Returns
-    the max error; with ``time``, also times and prints the row."""
-    q, k, v = (torch.randn(b, s, n, d, device=DEV).to(dtype)
-               for n in (h, kh, kh))
+    2e-3 in f32, 2e-2 in bf16 (tests/test_kernels.py's bounds). With
+    ``packed``, q, k and v are views of one (B, S, H + 2K, D) projection,
+    read through their strides. Returns the max error; with ``time``, also
+    times and prints the row."""
+    if packed:
+        qkv = torch.randn(b, s, h + 2 * kh, d, device=DEV).to(dtype)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    else:
+        q, k, v = (torch.randn(b, s, n, d, device=DEV).to(dtype)
+                   for n in (h, kh, kh))
     big = b * h * s * s >= 2 ** 31
     plain = (attention_plain_by_head if big else
              lambda *a: flash_ref.attention_ref(*a[:3], causal=a[3],
@@ -526,6 +596,21 @@ def kernels_lm():
     print("flash_attention fuzz grid (S 16/100, H/K 4/2 8/1 4/4, D 32/64, "
           "causal or not, window none/16): max err " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
+    # the Hopper kernel's ragged edges at the prefill's head dim: S around
+    # its 128-row and 128-key tiles, both GQA groupings, both masks
+    worst = 0.0
+    for s in (100, 127, 128, 129, 255, 1000):
+        for h, kh in ((32, 8), (8, 1)):
+            for causal in (True, False):
+                for window in (None, 64):
+                    worst = max(worst, check_flash(
+                        2, s, h, kh, 128, torch.bfloat16, causal, window,
+                        time=False))
+    worst = max(worst, check_flash(2, 1000, 32, 8, 128, torch.bfloat16,
+                                   time=False, packed=True))
+    print(f"flash_attention bf16 D 128 grid (S 100/127/128/129/255/1000, "
+          f"H/K 32/8 8/1, causal or not, window none/64, and a packed-qkv "
+          f"view at S 1000): max err {worst:.3e} (tol 2e-2)")
     return main
 
 
@@ -603,6 +688,9 @@ def kernels_vs_plain():
         if dtype == torch.bfloat16:
             main["xent_fwd"], main["xent_bwd"] = RESULTS[-2], RESULTS[-1]
         check_xent(37, 13, dtype)
+        if dtype == torch.bfloat16:     # K3f's block edges: 4 rows / 1 row
+            for rows, v in ((1, 13), (33, 100), (1000, 1000)):
+                check_xent(rows, v, dtype)
         # the sharded path at world size 1: one bucket of the 800-row pool
         check_bucket(POOL, (HW, HW, WIDTH), dtype, (1, POOL), pad=0)
         if dtype == torch.bfloat16:

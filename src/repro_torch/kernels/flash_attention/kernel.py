@@ -1,10 +1,15 @@
-"""Launch the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launch the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_bhsd``.
 The kernel is bound by operations (the tensor cores) at the prefill's
 shapes; the source file says how its design meets that. It reads q, k and
 v in the model's (B, S, heads, D) layout through their strides, so no
 transpose or padding copy is made around it.
+
+Each (dtype, D) has one kernel: bf16 at D 64 and 128 the Hopper kernel
+(TMA loads, ``wgmma``, warp specialisation), whose tensor maps
+:func:`tma_geometry` lays out; bf16 at D 32 the ``mma.sync`` kernel; f32
+the plain-FMA kernel.
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ from repro_torch.kernels import build
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+TMA_HEAD_DIMS = (64, 128)      # bf16 head dims of the Hopper kernel
+TMA_BOX_BYTES = 128            # the 128-byte swizzle's widest box row
+Q_ROWS, KV_ROWS = 128, 128     # the Hopper kernel's q and K / V tiles
 
 
 @functools.cache
@@ -30,6 +38,69 @@ def _fn():
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _tma_fn():
+    fn = build.library("flash_attention").sfpl_flash_attention_tma
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def resources(d, dtype=torch.bfloat16):
+    """The card's report on the kernel that serves (D, dtype): registers a
+    thread at launch, static and dynamic shared memory a CTA, and CTAs an
+    SM (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMulti
+    processor``). bf16 only; builds the library on first use."""
+    fn = build.library("flash_attention").sfpl_flash_attention_resources
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(4)]
+    build.check(fn(d, DTYPES[dtype], *map(ctypes.byref, out)),
+                "flash_attention resources")
+    return dict(zip(("registers", "smem_static", "smem_dynamic",
+                     "ctas_per_sm"), (x.value for x in out)))
+
+
+def tma_geometry(t, rows):
+    """The 4-D tensor map through which the Hopper kernel loads ``t``, a
+    bf16 (B, S, heads, D) tensor, in tiles of ``rows`` sequence positions.
+
+    Returns ``(dims, strides, box)`` in the driver's order, innermost
+    first: ``dims`` (D, heads, S, B) in elements, ``strides`` the byte
+    strides of heads, S and B, and ``box`` (64, 1, rows, 1). A box row is
+    64 bf16, the 128 bytes that the 128-byte swizzle allows, so a D 128
+    row is loaded as two boxes (the kernel's x = 0, 1 at column 64 x).
+    The stride of a size-1 dimension is never used and is given as the
+    packed one (the byte extent of the dimensions inside it). Raises on what TMA cannot load: another dtype or
+    D, a non-unit D stride, a base or a used stride that is not a
+    multiple of 16 bytes, or a stride of 2**40 bytes or more."""
+    if t.dtype != torch.bfloat16 or t.dim() != 4:
+        raise ValueError(f"tma_geometry: a 4-D bf16 tensor; got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    b, s, n, d = t.shape
+    if d not in TMA_HEAD_DIMS:
+        raise ValueError(f"tma_geometry: D in {TMA_HEAD_DIMS}; got {d}")
+    es = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"tma_geometry: unit stride on D needed; got "
+                         f"strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError("tma_geometry: the base must be 16-byte aligned")
+    strides, inner = [], d * es
+    for dim in (2, 1, 0):                     # heads, S, B
+        st = t.stride(dim) * es if t.shape[dim] > 1 else inner
+        if st % 16 or not 0 < st < 2 ** 40:
+            raise ValueError(f"tma_geometry: byte strides of heads, S and B "
+                             f"must be positive multiples of 16 below 2**40; "
+                             f"got {st} on dim {dim} (strides {t.stride()})")
+        strides.append(st)
+        inner = st * t.shape[dim]
+    return ((d, n, s, b), tuple(strides),
+            (TMA_BOX_BYTES // es, 1, rows, 1))
 
 
 def _check(q, k, v):
@@ -72,13 +143,25 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
-                                      for s in t.stride()[:3]))
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                sq, skv, h, kh, d, ctypes.addressof(strides), float(scale),
-                int(causal), 0 if window is None else int(window),
-                DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    w = 0 if window is None else int(window)
+    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+        if scale < 0:       # its row max is taken on the raw scores
+            q, scale = -q, -scale
+        geom = (ctypes.c_int64 * 33)(*(x for t, rows in (
+            (q, Q_ROWS), (k, KV_ROWS), (v, KV_ROWS))
+            for part in tma_geometry(t, rows) for x in part))
+        ostrides = (ctypes.c_int64 * 3)(*o.stride()[:3])
+        err = _tma_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), ctypes.addressof(geom),
+                        ctypes.addressof(ostrides), float(scale),
+                        int(causal), w, stream)
+    else:
+        strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                          for s in t.stride()[:3]))
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    b, sq, skv, h, kh, d, ctypes.addressof(strides),
+                    float(scale), int(causal), w, DTYPES[q.dtype], stream)
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o

@@ -5,18 +5,27 @@ Replace ``src/repro/kernels/softmax_xent/kernel.py::xent_fwd_2d`` and
 sweep (256, Vp) row blocks.
 
 Bound on Hopper: at the main path's shape (800 rows x 100 classes) both
-sweeps move well under a megabyte, so launch latency, not bandwidth or
-arithmetic, bounds them; the byte bound is one read of the logits and one
-write of the per-row results (forward) or of ``dx`` (backward).
+sweeps move well under a megabyte, so launch latency and the length of
+the dependent chain in one program, not bandwidth or arithmetic, bound
+them; the byte bound is one read of the logits and one write of the
+per-row results (forward) or of ``dx`` (backward).
 
-Design: one program per block of rows, the whole class axis of each row
-in registers (``BLOCK_V`` the next power of two, columns past ``V``
-masked to ``-inf`` on load, so V = 100 needs no padded copy). The forward
-reduces max, sum of exponentials and the label logit in f32 and writes
-``nll`` and ``lse``; the backward rebuilds the softmax from the saved
-``lse`` (no second reduction), subtracts the one-hot, scales by the
-per-row ``g`` and stores in the logits' dtype. Triton is imported and the
-kernels are compiled inside the launching functions only.
+Design: the whole class axis of each row in registers (``BLOCK_V`` the
+next power of two, columns past ``V`` masked to ``-inf`` on load, so V =
+100 needs no padded copy). The forward spreads the rows over many small
+programs: 4 rows of up to 128 classes in one warp (200 programs at 800
+rows, 16 values a thread), one row in 1-8 warps for wider rows. Each
+program reduces the max and the sum of ``exp2((x - m) * log2 e)`` in f32,
+takes ``lse = m + log2(sum) * ln 2``, and fetches the label logit with one
+scalar load, not a second masked reduction; it writes ``nll`` and
+``lse``. The backward keeps its 64-row blocks: it rebuilds the softmax
+from the saved ``lse`` (no second reduction), subtracts the one-hot,
+scales by the per-row ``g`` and stores in the logits' dtype.
+
+Both stay in Triton: they are row reductions, which Triton expresses in
+a few lines with the same warp-shuffle reductions a CUDA C++ version
+would write by hand. Triton is imported and the kernels are compiled
+inside the launching functions only.
 """
 from __future__ import annotations
 
@@ -43,15 +52,15 @@ def _kernels():
         rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
         cols = tl.arange(0, BLOCK_V)
         rmask = rows < R
-        mask = rmask[:, None] & (cols[None, :] < V)
-        x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
-                    mask=mask, other=float("-inf")).to(tl.float32)
-        m = tl.max(x, axis=1)
-        m = tl.where(rmask, m, 0.0)
-        s = tl.sum(tl.exp(x - m[:, None]), axis=1)
-        lse = m + tl.log(s)
+        row_ptr = x_ptr + rows.to(tl.int64) * stride_x
+        x = tl.load(row_ptr[:, None] + cols[None, :],
+                    mask=rmask[:, None] & (cols[None, :] < V),
+                    other=float("-inf")).to(tl.float32)
         lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
-        ll = tl.sum(tl.where(cols[None, :] == lab[:, None], x, 0.0), axis=1)
+        ll = tl.load(row_ptr + lab, mask=rmask, other=0.0).to(tl.float32)
+        m = tl.where(rmask, tl.max(x, axis=1), 0.0)
+        s = tl.sum(tl.exp2((x - m[:, None]) * 1.4426950408889634), axis=1)
+        lse = m + tl.log2(s) * 0.6931471805599453
         tl.store(nll_ptr + rows, lse - ll, mask=rmask)
         tl.store(lse_ptr + rows, lse, mask=rmask)
 
@@ -78,9 +87,19 @@ def _kernels():
 
 
 def _blocks(v):
+    """The backward's (rows, classes) block: up to 4096 values."""
     block_v = 1 << max(0, (v - 1).bit_length())
     block_r = max(1, min(64, 4096 // block_v))
     return block_r, block_v
+
+
+def _fwd_blocks(v):
+    """The forward's (rows, classes, warps): 16 values a thread up to 512
+    values a program (4 rows of up to 128 classes in one warp), then one
+    row a program in up to 8 warps."""
+    block_v = 1 << max(0, (v - 1).bit_length())
+    block_r = max(1, min(4, 512 // block_v))
+    return block_r, block_v, max(1, min(8, block_r * block_v // 512))
 
 
 def _check(x, labels, *rows_f32):
@@ -112,10 +131,10 @@ def xent_fwd(x, labels):
     r, v = x.shape
     nll = torch.empty(r, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
-    block_r, block_v = _blocks(v)
+    block_r, block_v, warps = _fwd_blocks(v)
     fwd[(triton.cdiv(r, block_r),)](x, labels, nll, lse, r, v, x.stride(0),
                                     BLOCK_R=block_r, BLOCK_V=block_v,
-                                    num_warps=4)
+                                    num_warps=warps)
     LAUNCHES["xent_fwd"] += 1
     return nll, lse
 

@@ -81,7 +81,8 @@ def test_bn_act_kernel(dev, g, rows, c, relu, dtype):
                    torch.finfo(dtype).eps)
 
 
-@pytest.mark.parametrize("rows,v", [(800, 100), (37, 13)])
+@pytest.mark.parametrize("rows,v", [(800, 100), (37, 13)] + [
+    (rows, v) for rows in (1, 33, 1000) for v in (13, 100, 1000)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_softmax_xent_kernels(dev, rows, v, dtype):
     x = (3 * torch.randn(rows, v, device=dev)).to(dtype).requires_grad_()
@@ -221,7 +222,12 @@ def test_rmsnorm_kernel(dev, shape, offset, dtype):
     (1, 16, (4, 2), 32, True, None), (2, 64, (4, 4), 64, False, None),
     (1, 100, (8, 1), 32, True, 16), (2, 128, (4, 2), 64, True, None),
     (1, 100, (4, 4), 64, False, 16), (2, 100, (8, 1), 128, True, None),
-    (1, 1000, (32, 8), 128, True, None), (1, 300, (4, 2), 128, True, 64)])
+    (1, 1000, (32, 8), 128, True, None), (1, 300, (4, 2), 128, True, 64),
+    # the Hopper kernel's tile edges (128 q rows, 128 keys) at D 128, and
+    # a window that spans two kv tiles
+    (1, 127, (8, 2), 128, True, None), (2, 128, (8, 2), 128, False, None),
+    (1, 129, (8, 1), 128, True, None), (1, 255, (4, 4), 128, False, 64),
+    (1, 400, (8, 2), 128, True, 200)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
     h, k = hk
@@ -236,10 +242,26 @@ def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
     assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_reads_strided_views(dev):
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_any_scale(dev, scale, d):
+    """The Hopper kernel (D 64, 128) takes its row max on the raw scores,
+    so the wrapper moves a negative scale into q; scale 0 is uniform
+    attention over the live keys."""
+    q, k, v = (torch.randn(2, 200, n, d, device=dev).to(torch.bfloat16)
+               for n in (4, 2, 2))
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=64,
+                                    scale=scale)
+    want = flash_ref.attention_ref(q, k, v, causal=True, window=64,
+                                   scale=scale)
+    assert torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_reads_strided_views(dev, d):
     """q, k, v as views of one fused projection (no copy), like a packed
     qkv: the kernel reads them through their strides."""
-    qkv = torch.randn(2, 77, 4 + 2 + 2, 64, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(2, 77, 4 + 2 + 2, d, device=dev).to(torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     out = flash_ops.flash_attention(q, k, v, causal=True)
     want = flash_ref.attention_ref(q, k, v, causal=True)
