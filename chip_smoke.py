@@ -74,6 +74,9 @@ from repro_torch.kernels.softmax_xent import ref as xent_ref   # noqa: E402
 from repro_torch.tree import tree_leaves                      # noqa: E402
 
 DEV = torch.device("cuda")
+# copies of a gather's input timed in turn so that reads come from device
+# memory: 4 x 26 MB of the pool is over twice the 50 MB L2
+ROTATE = 4
 REPLACES = {
     "collector_permute": "src/repro/kernels/collector_permute/kernel.py:33",
     "bn_act": "src/repro/kernels/bn_act/kernel.py:30",
@@ -202,9 +205,11 @@ def triton_resources(jit, grid, *args, **meta):
 def kernel_resources():
     """K7's kernels (the runtime's attributes and occupancy) and K3f/K3b's
     at the main path's 800 x 100 bf16 (their compiled binaries)."""
-    for d in (128, 64, 32):
+    for d in (256, 128, 64, 32):
         print(f"  K7 bf16 D {d}: {json.dumps(flash_k.resources(d))}")
-    _, fwd, bwd = xent_k._kernels()
+    print(f"  K7 f32 D 256: "
+          f"{json.dumps(flash_k.resources(256, torch.float32))}")
+    _, fwd, bwd, _ = xent_k._kernels()
     x = torch.randn(POOL, CLASSES, device=DEV).to(torch.bfloat16)
     lab = torch.zeros(POOL, dtype=torch.int64, device=DEV)
     nll, lse = (torch.empty(POOL, device=DEV) for _ in range(2))
@@ -229,17 +234,21 @@ def time_ms(fn, iters=20, reps=5):
     """Device time of one call of ``fn``: ``iters`` calls captured in a
     CUDA graph and replayed ``reps`` times between CUDA events, so host
     launch overhead is left out. Inputs stay the same from call to call
-    (warm L2 where they fit in its 50 MB)."""
+    (warm L2 where they fit in its 50 MB). ``fn`` may be a list of
+    calls, taken in turn (each on its own copy of the inputs, to rotate
+    them out of L2)."""
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            fn()
+            for f in fns:
+                f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fns[i % len(fns)]()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -292,10 +301,13 @@ RESULTS = []
 
 
 def record(name, shape, dtype, err, ok, tol, fn, plain, nbytes, flops,
-           library=None, peak="float32", heavy=False):
+           library=None, peak="float32", heavy=False, rotated=None):
     """Check, time and print one kernel row. ``heavy``: calls of many
     milliseconds whose plain version allocates gigabytes; timed with fewer
-    calls, and the plain and library versions eagerly, not in a graph."""
+    calls, and the plain and library versions eagerly, not in a graph.
+    ``rotated``: (kernel calls, library calls) on copies of the inputs
+    that together exceed L2, timed as well (``rotated_ms``,
+    ``library_rotated_ms``)."""
     if not ok:
         raise AssertionError(f"{name} {tuple(shape)} {dtype}: kernel "
                              f"disagrees with its plain version (max err "
@@ -311,11 +323,25 @@ def record(name, shape, dtype, err, ok, tol, fn, plain, nbytes, flops,
                eager_ms=eager_ms(fn, iters=2 if heavy else 20),
                plain_ms=other(plain), bound_ms=b, bound_by=by,
                library_ms=None if library is None else other(library))
+    if rotated is not None:
+        row["rotated_ms"], row["library_rotated_ms"] = map(time_ms, rotated)
     RESULTS.append(row)
     print(json.dumps(row), flush=True)
 
 
-def check_permute(rows, feat, dtype):
+def rotations(x, rotate):
+    """``x`` and ``rotate - 1`` copies of it, when ``rotate``."""
+    return [x] + [x.clone() for _ in range(rotate - 1)] if rotate else [x]
+
+
+def gather_rotated(kernel, xs, idx):
+    """(kernel calls, index_select calls) over the copies ``xs``."""
+    flat = idx.reshape(-1)
+    return ([lambda x=x: kernel(x, idx) for x in xs],
+            [lambda x=x: torch.index_select(x, 0, flat) for x in xs])
+
+
+def check_permute(rows, feat, dtype, rotate=0):
     x = torch.randn((rows,) + feat, device=DEV).to(dtype)
     perm = torch.randperm(rows, device=DEV)
     got = perm_k.collector_permute(x, perm)
@@ -327,7 +353,10 @@ def check_permute(rows, feat, dtype):
     record("collector_permute", x.shape, dtype, err, ok, "bitwise",
            lambda: perm_k.collector_permute(x, perm),
            lambda: perm_ref.collector_permute(x, perm), nbytes, 0,
-           library=lambda: torch.index_select(x, 0, perm))
+           library=lambda: torch.index_select(x, 0, perm),
+           rotated=gather_rotated(perm_k.collector_permute,
+                                  rotations(x, rotate), perm)
+           if rotate else None)
 
 
 def check_bn_act(groups, rows, c, dtype, relu=True):
@@ -377,39 +406,44 @@ def check_xent(rows, v, dtype):
            5 * x.numel())
 
 
-def check_bucket(rows, feat, dtype, sc, pad):
-    """K4a at (S, cap) = ``sc`` from ``rows`` rows, then K4b back from the
-    flat block (plus the zero pad row when ``pad``) into ``rows`` rows,
-    each against its plain gather, bitwise. Indices are int32, the route
-    plan's dtype."""
+def check_gather_row(name, kernel, plain, x, idx, out_rows, rotate):
+    """One K4 kernel against its plain gather, bitwise, timed warm and,
+    when ``rotate``, over that many copies of ``x``."""
+    got = kernel(x, idx)
+    want = plain(x, idx)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want)
+    row_bytes = x[0].numel() * x.element_size()
+    record(name, (out_rows,) + tuple(x.shape[1:]), x.dtype,
+           0.0 if ok else float((got.float() - want.float()).abs().max()),
+           ok, "bitwise", lambda: kernel(x, idx), lambda: plain(x, idx),
+           2 * out_rows * row_bytes + out_rows * idx.element_size(), 0,
+           library=lambda: torch.index_select(x, 0, idx.reshape(-1)),
+           rotated=gather_rotated(kernel, rotations(x, rotate), idx)
+           if rotate else None)
+    return got
+
+
+def check_bucket(rows, feat, dtype, sc, pad, rotate=0):
+    """K4a at (S, cap) = ``sc`` from ``rows`` rows (repeated rows when
+    S*cap > rows, as slack-buffered plans have), then K4b back from the
+    flat block (plus the zero pad row when ``pad``, which K4b then reads)
+    into ``rows`` rows, each against its plain gather, bitwise. Indices
+    are int32, the route plan's dtype. ``rotate``: also time each over
+    that many copies of its input."""
     x = torch.randn((rows,) + feat, device=DEV).to(dtype)
     k = sc[0] * sc[1]
     idx = (torch.randperm(rows, device=DEV)[:k] if k <= rows else
            torch.randint(0, rows, (k,), device=DEV)).to(torch.int32)
     idx = idx.reshape(sc)
-    got = perm_k.bucket_permute(x, idx)
-    want = perm_ref.bucket_permute(x, idx)
-    torch.cuda.synchronize()
-    row_bytes = x[0].numel() * x.element_size()
-    record("bucket_permute", (k,) + feat, dtype, 0.0 if torch.equal(
-               got, want) else float((got.float() - want.float()).abs()
-                                     .max()), torch.equal(got, want),
-           "bitwise", lambda: perm_k.bucket_permute(x, idx),
-           lambda: perm_ref.bucket_permute(x, idx), 2 * k * row_bytes
-           + k * 4, 0,
-           library=lambda: torch.index_select(x, 0, idx.reshape(-1)))
+    got = check_gather_row("bucket_permute", perm_k.bucket_permute,
+                           perm_ref.bucket_permute, x, idx, k, rotate)
     flat = torch.cat([got, torch.zeros_like(got[:pad])])
     ridx = torch.randperm(flat.shape[0], device=DEV)[:rows].to(torch.int32)
-    got = perm_k.unbucket_permute(flat, ridx)
-    want = perm_ref.unbucket_permute(flat, ridx)
-    torch.cuda.synchronize()
-    record("unbucket_permute", (rows,) + feat, dtype, 0.0 if torch.equal(
-               got, want) else float((got.float() - want.float()).abs()
-                                     .max()), torch.equal(got, want),
-           "bitwise", lambda: perm_k.unbucket_permute(flat, ridx),
-           lambda: perm_ref.unbucket_permute(flat, ridx),
-           2 * rows * row_bytes + rows * 4, 0,
-           library=lambda: torch.index_select(flat, 0, ridx))
+    if pad:
+        ridx[0] = flat.shape[0] - 1
+    check_gather_row("unbucket_permute", perm_k.unbucket_permute,
+                     perm_ref.unbucket_permute, flat, ridx, rows, rotate)
 
 
 def _wire_err(got, want):
@@ -500,17 +534,46 @@ def attention_plain_by_head(q, k, v, causal, window):
         for h in range(q.shape[2])], dim=2)
 
 
-def sdpa_gqa(q, k, v, causal):
+def sdpa_gqa(q, k, v, causal, mask=None):
     """The library yardstick: one fused SDPA call with GQA, on its flash or
     memory-efficient backends only (the math backend would materialise the
-    scores). Timed here, used nowhere in the port."""
+    scores); with ``mask`` (a sliding window, which SDPA has no flag for)
+    an additive (Sq, Skv) mask instead of ``causal``. Timed here, used
+    nowhere in the port."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION,
                       SDPBackend.CUDNN_ATTENTION]):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+
+def sdpa_yardstick(q, k, v, causal, window):
+    """A call of ``sdpa_gqa`` that some fused backend takes on these
+    inputs, or None. A window goes in as a mask; where no backend takes
+    GQA with a mask, k and v are repeated to the q heads first (outside
+    the timed call)."""
+    mask = None
+    if window:       # additive, in q's dtype: no conversion in the call
+        iq = torch.arange(q.shape[1], device=DEV)[:, None]
+        ik = torch.arange(k.shape[1], device=DEV)[None, :]
+        live = (iq - ik < window) & ((iq >= ik) if causal else True)
+        mask = torch.zeros(live.shape, dtype=q.dtype, device=DEV)
+        mask.masked_fill_(~live, float("-inf"))
+    g = q.shape[2] // k.shape[2]
+    for kv in ((k, v), (k.repeat_interleave(g, 2), v.repeat_interleave(g, 2))):
+        try:
+            sdpa_gqa(q, *kv, causal, mask)
+            return lambda: sdpa_gqa(q, *kv, causal, mask)
+        except RuntimeError as e:      # no fused backend takes these inputs
+            print(f"  SDPA yardstick unavailable at {tuple(q.shape)} with "
+                  f"{kv[0].shape[2]} kv heads, mask {mask is not None}: "
+                  f"{str(e).splitlines()[0][:200]}")
+        if g == 1:
+            break
+    return None
 
 
 def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
@@ -541,14 +604,7 @@ def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
                              f"{err} (tol {tol})")
     if not time:
         return err
-    lib = None
-    if library:
-        try:
-            sdpa_gqa(q, k, v, causal)
-            lib = lambda: sdpa_gqa(q, k, v, causal)      # noqa: E731
-        except RuntimeError as e:       # no fused backend takes these inputs
-            print(f"  SDPA yardstick unavailable at {tuple(q.shape)}: "
-                  f"{str(e).splitlines()[0][:200]}")
+    lib = sdpa_yardstick(q, k, v, causal, window) if library else None
     pairs = attention_pairs(s, s, causal, window)
     record("flash_attention", (b, s, h, kh, d), dtype, err, ok,
            f"{tol} abs + rel",
@@ -611,6 +667,29 @@ def kernels_lm():
     print(f"flash_attention bf16 D 128 grid (S 100/127/128/129/255/1000, "
           f"H/K 32/8 8/1, causal or not, window none/64, and a packed-qkv "
           f"view at S 1000): max err {worst:.3e} (tol 2e-2)")
+    # head_dim 256: gemma-7b's prefill attention (16 heads, MHA) and
+    # recurrentgemma-9b's local attention (16 heads over 1, window 2048),
+    # then a grid over the mma.sync kernel's 64-row q and 32-key tiles
+    check_flash(1, LM_SEQ, 16, 16, 256, torch.bfloat16, library=True)
+    check_flash(1, LM_SEQ, 16, 1, 256, torch.bfloat16, window=2048,
+                library=True)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (31, 64, 65, 200):
+            for h, kh in ((4, 4), (4, 1)):
+                for causal in (True, False):
+                    for window in (None, 40):
+                        err = check_flash(2, s, h, kh, 256, dtype, causal,
+                                          window, time=False)
+                        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        worst[dtype] = max(worst[dtype], check_flash(
+            1, 2500, 4, 1, 256, dtype, window=2048, time=False))
+        worst[dtype] = max(worst[dtype], check_flash(
+            2, 77, 4, 2, 256, dtype, time=False, packed=True))
+    print("flash_attention D 256 grid (S 31/64/65/200, H/K 4/4 4/1, causal "
+          "or not, window none/40; S 2500 window 2048; a packed-qkv view): "
+          "max err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + " (tol 2e-3 f32, 2e-2 bf16)")
     return main
 
 
@@ -672,7 +751,8 @@ def kernels_vs_plain():
     phase("2. kernels against their plain versions (full width + ragged)")
     main = {}
     for dtype in (torch.bfloat16, torch.float32):
-        check_permute(POOL, (HW, HW, WIDTH), dtype)
+        pool_bf16 = ROTATE if dtype == torch.bfloat16 else 0
+        check_permute(POOL, (HW, HW, WIDTH), dtype, rotate=pool_bf16)
         if dtype == torch.bfloat16:
             main["collector_permute"] = RESULTS[-1]
         check_permute(37, (5, 7, 3), dtype)
@@ -691,11 +771,17 @@ def kernels_vs_plain():
         if dtype == torch.bfloat16:     # K3f's block edges: 4 rows / 1 row
             for rows, v in ((1, 13), (33, 100), (1000, 1000)):
                 check_xent(rows, v, dtype)
+        # past the one-block width: a GPT-2-sized vocabulary
+        check_xent(64, 50257, dtype)
         # the sharded path at world size 1: one bucket of the 800-row pool
-        check_bucket(POOL, (HW, HW, WIDTH), dtype, (1, POOL), pad=0)
+        check_bucket(POOL, (HW, HW, WIDTH), dtype, (1, POOL), pad=0,
+                     rotate=pool_bf16)
         if dtype == torch.bfloat16:
             main["bucket_permute"], main["unbucket_permute"] = \
                 RESULTS[-2], RESULTS[-1]
+        # a slack-buffered plan: 4 buckets of 220 from 800 rows (repeated
+        # rows), and K4b reading the zero pad row
+        check_bucket(POOL, (HW, HW, WIDTH), dtype, (4, 220), pad=1)
         check_bucket(37, (5, 7, 3), dtype, (4, 10), pad=1)
         for wire in ("int8", "float8_e4m3"):
             check_quant(POOL, HW * HW * WIDTH, dtype, wire, (1, POOL), 0)
@@ -816,9 +902,11 @@ def profile_steps(epoch, steps=2, what="warm steps"):
     print("  host waits and collectives: " + ", ".join(
         f"{k} x{c} ({t / 1e3:.2f} ms)" for k, (c, t) in sorted(
             waits.items())))
+    by_name = {}
     for name, sym in SYMBOL.items():
         us = sum(r[1] for r in rows if sym in r[0])
         n = sum(r[2] for r in rows if sym in r[0])
+        by_name[name] = n
         if n:
             print(f"  {name}: {us / 1e3:.3f} ms over {n} launches "
                   f"({100 * us / max(busy, 1):.2f}% of device time)")
@@ -829,6 +917,7 @@ def profile_steps(epoch, steps=2, what="warm steps"):
                    for e in prof.key_averages()), key=lambda r: -r[1])[:12]
     print("  host (self CPU time): " + "; ".join(
         f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in host))
+    return by_name
 
 
 def entry_point():
@@ -1011,8 +1100,12 @@ def sharded_path():
                                  f"from the plain one by {d_plain}")
         if not float(gap[:2].max()) <= 1.5e-2:
             raise AssertionError(f"int8 wire differs by {gap.tolist()}")
-        profile_steps(lambda k: sharded_epoch(run, group, 3, "int8",
-                                              steps=k))
+        seen = profile_steps(lambda k: sharded_epoch(run, group, 3, "int8",
+                                                     steps=k))
+        if not (seen["bucket_permute"] and seen["unbucket_permute"]):
+            raise AssertionError(f"the sharded steps ran no K4a/K4b "
+                                 f"kernel ({SYMBOL['bucket_permute']}"
+                                 f", {SYMBOL['unbucket_permute']}): {seen}")
         exchange_breakdown(group)
     finally:
         ED.close_data_group()

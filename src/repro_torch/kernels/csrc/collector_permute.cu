@@ -29,6 +29,11 @@
 // int64 for K1's permutation, int32 or int64 for a route plan's indices,
 // so no cast copy of the plan is made per call. Each entry point has a
 // kernel symbol of its own, so a profile tells the three apart.
+//
+// Tried for K4a/K4b and not kept: a persistent grid that moves rows
+// through Hopper's bulk-copy engine (cp.async.bulk into a ring of shared
+// memory stages, indices a slab ahead) ran 0-2 % slower than this design
+// on the same gather at the pool's shape (PERF.md section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -73,14 +73,20 @@
 // tile's softmax with the next tile's Q K^T inside a warpgroup, were each
 // slower, and a third ring stage changed nothing, so none is kept.
 //
-// bf16 at D 32 keeps the FlashAttention-2-style mma.sync kernel
-// (flash_fwd_kernel): its 64-byte rows want the 64-byte swizzle and a
-// different tiling. f32 inputs (the test dtype, not the path's) take a
-// plain-FMA loop of the same structure (flash_fwd_f32_kernel).
+// bf16 at D 32 and D 256 keeps the FlashAttention-2-style mma.sync kernel
+// (flash_fwd_kernel): D 32's 64-byte rows want the 64-byte swizzle and a
+// different tiling, and D 256 (gemma-7b, recurrentgemma-9b) is served
+// simply first. At D 256 its key tile halves to 32 keys, so the static K
+// and V tiles (2 x 32 x 264 x 2 = 33,792 bytes) stay under the 48 KB
+// static limit; each thread then holds Q's fragments (64 registers) and an
+// O accumulator of 32 n-tiles (128 registers). f32 inputs (the test dtype,
+// not the path's) take a plain-FMA loop of the same structure
+// (flash_fwd_f32_kernel), whose key tile halves to 16 keys at D 256 for
+// the same limit.
 //
 // Not yet: a persistent grid, a TMA store of o, 2-CTA clusters that
 // multicast each K / V tile to the two q heads that share it, and the
-// Hopper kernel at D 32.
+// Hopper kernel at D 32 and D 256.
 #include <cuda.h>            // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,10 +97,12 @@ namespace {
 constexpr float kNegInf = -2.3819763e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ---- bf16 mma.sync path, D 32 only -----------------------------------------
+// ---- bf16 mma.sync path, D 32 and D 256 ------------------------------------
 constexpr int kBQ = 64;            // q rows per block: 4 warps x 16
-constexpr int kBK = 64;            // keys per kv tile
 constexpr int kThreads = 128;
+
+// keys per kv tile: 64, or 32 at D 256 to keep K and V under 48 KB
+__host__ __device__ constexpr int keys_bf16(int d) { return d > 128 ? 32 : 64; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
@@ -138,6 +146,7 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  int sq, int skv, int group, Strides qs, Strides ks,
                  Strides vs, Strides os, float scale_log2, int causal,
                  int window) {
+  constexpr int kBK = keys_bf16(D);
   constexpr int LD = D + 8;          // padded smem row, elements
   constexpr int KT = D / 16;         // k-steps over D in Q K^T
   constexpr int NT = kBK / 8;        // n-tiles over the keys of a tile
@@ -286,7 +295,9 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // ---- f32 plain-FMA path ----------------------------------------------------
 constexpr int kRowsF = 16;         // q rows per block
 constexpr int kParts = 8;          // threads per q row
-constexpr int kBKF = 32;           // keys per kv tile
+
+// keys per kv tile: 32, or 16 at D 256 to keep K and V under 48 KB
+__host__ __device__ constexpr int keys_f32(int d) { return d > 128 ? 16 : 32; }
 
 template <int D>
 __global__ void __launch_bounds__(kRowsF * kParts)
@@ -295,6 +306,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int sq, int skv, int group, Strides qs, Strides ks,
                      Strides vs, Strides os, float scale, int causal,
                      int window) {
+  constexpr int kBKF = keys_f32(D);
   constexpr int DP = D / kParts;     // dims per thread: d = i * kParts + p
   __shared__ float Ks[kBKF][D];
   __shared__ float Vs[kBKF][D];
@@ -927,13 +939,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            float scale, int causal, int window, int dtype,
            cudaStream_t stream) {
   if (dtype == 1) {
-    if constexpr (D != 32) return (int)cudaErrorInvalidValue;   // Hopper path
-    dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-    flash_fwd_kernel<32><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), (int)sq,
-        (int)skv, group, st[0], st[1], st[2], st[3], scale * kLog2e, causal,
-        window);
+    if constexpr (D != 32 && D != 256) {
+      return (int)cudaErrorInvalidValue;                        // Hopper path
+    } else {
+      dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+      flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+          static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+          static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o),
+          (int)sq, (int)skv, group, st[0], st[1], st[2], st[3],
+          scale * kLog2e, causal, window);
+    }
   } else {
     dim3 grid((unsigned)((sq + kRowsF - 1) / kRowsF), (unsigned)H,
               (unsigned)B);
@@ -954,7 +969,8 @@ bool shape_ok(int64_t B, int64_t sq, int64_t skv, int64_t H, int64_t K,
 
 }  // namespace
 
-// The mma.sync and plain-FMA kernels: f32 at D 32, 64 and 128, bf16 at D 32.
+// The mma.sync and plain-FMA kernels: f32 at D 32, 64, 128 and 256, bf16 at
+// D 32 and 256.
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); unit stride on D. strides:
 // 12 int64 in elements, (batch, sequence, head) for q, k, v, o in turn.
 // dtype: 0 float32, 1 bfloat16. window <= 0 means none. Returns
@@ -968,7 +984,7 @@ extern "C" int sfpl_flash_attention(const void* q, const void* k,
                                     void* stream) {
   if (B <= 0 || sq <= 0 || H <= 0) return 0;
   if (!shape_ok(B, sq, skv, H, K, window) || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && D != 32))
+      (dtype == 1 && D != 32 && D != 256))
     return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i)
@@ -979,6 +995,7 @@ extern "C" int sfpl_flash_attention(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, o, B, sq, skv, H, group, st, scale, causal, w, dtype, s);
     case 64: return launch<64>(q, k, v, o, B, sq, skv, H, group, st, scale, causal, w, dtype, s);
     case 128: return launch<128>(q, k, v, o, B, sq, skv, H, group, st, scale, causal, w, dtype, s);
+    case 256: return launch<256>(q, k, v, o, B, sq, skv, H, group, st, scale, causal, w, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1032,9 +1049,13 @@ extern "C" int sfpl_flash_attention_resources(int64_t D, int dtype,
     fn = reinterpret_cast<const void*>(hopper::flash_fwd_hopper<64>);
     threads = hopper::kThreads;
     dyn = hopper::Smem<64>::kBytes;
-  } else if (dtype == 1 && D == 32) {
-    fn = reinterpret_cast<const void*>(flash_fwd_kernel<32>);
+  } else if (dtype == 1 && (D == 32 || D == 256)) {
+    fn = D == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<32>)
+                 : reinterpret_cast<const void*>(flash_fwd_kernel<256>);
     threads = kThreads;
+  } else if (dtype == 0 && D == 256) {
+    fn = reinterpret_cast<const void*>(flash_fwd_f32_kernel<256>);
+    threads = kRowsF * kParts;
   } else {
     return (int)cudaErrorInvalidValue;
   }

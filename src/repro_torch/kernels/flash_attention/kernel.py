@@ -8,8 +8,8 @@ transpose or padding copy is made around it.
 
 Each (dtype, D) has one kernel: bf16 at D 64 and 128 the Hopper kernel
 (TMA loads, ``wgmma``, warp specialisation), whose tensor maps
-:func:`tma_geometry` lays out; bf16 at D 32 the ``mma.sync`` kernel; f32
-the plain-FMA kernel.
+:func:`tma_geometry` lays out; bf16 at D 32 and 256 the ``mma.sync``
+kernel; f32 the plain-FMA kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 TMA_HEAD_DIMS = (64, 128)      # bf16 head dims of the Hopper kernel
 TMA_BOX_BYTES = 128            # the 128-byte swizzle's widest box row
 Q_ROWS, KV_ROWS = 128, 128     # the Hopper kernel's q and K / V tiles
@@ -53,7 +53,7 @@ def resources(d, dtype=torch.bfloat16):
     """The card's report on the kernel that serves (D, dtype): registers a
     thread at launch, static and dynamic shared memory a CTA, and CTAs an
     SM (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMulti
-    processor``). bf16 only; builds the library on first use."""
+    processor``). Builds the library on first use."""
     fn = build.library("flash_attention").sfpl_flash_attention_resources
     fn.argtypes = [ctypes.c_int64, ctypes.c_int] + [
         ctypes.POINTER(ctypes.c_int)] * 4

@@ -22,6 +22,14 @@ scalar load, not a second masked reduction; it writes ``nll`` and
 from the saved ``lse`` (no second reduction), subtracts the one-hot,
 scales by the per-row ``g`` and stores in the logits' dtype.
 
+Rows wider than ``MAX_V`` classes (an LM vocabulary, where the Pallas
+kernel pads V and takes any width) do not fit one block: the forward
+takes one row a program and loops over blocks of ``WIDE_V`` columns with
+a running max and sum (``xent_fwd_wide_kernel``); the backward spreads
+the columns over a second grid axis, each program rebuilding its block
+from the saved ``lse``. Row offsets are formed in int64 in both
+directions, so R x V past 2**31 elements addresses right.
+
 Both stay in Triton: they are row reductions, which Triton expresses in
 a few lines with the same warp-shuffle reductions a CUDA C++ version
 would write by hand. Triton is imported and the kernels are compiled
@@ -37,7 +45,8 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/softmax_xent/kernel.py"
-MAX_V = 16384
+MAX_V = 16384          # the widest row one program holds whole
+WIDE_V = 4096          # the column block of rows wider than MAX_V
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -65,14 +74,39 @@ def _kernels():
         tl.store(lse_ptr + rows, lse, mask=rmask)
 
     @triton.jit
+    def xent_fwd_wide_kernel(x_ptr, lab_ptr, nll_ptr, lse_ptr, V, stride_x,
+                             BLOCK_V: tl.constexpr):
+        row = tl.program_id(0)
+        row_ptr = x_ptr + row.to(tl.int64) * stride_x
+        cols = tl.arange(0, BLOCK_V)
+        # V > BLOCK_V: the first block is whole, and starts the running max
+        # and sum that the other blocks update
+        x = tl.load(row_ptr + cols).to(tl.float32)
+        m = tl.max(x, axis=0)
+        s = tl.sum(tl.exp2((x - m) * 1.4426950408889634), axis=0)
+        for v0 in range(BLOCK_V, V, BLOCK_V):
+            x = tl.load(row_ptr + v0 + cols, mask=v0 + cols < V,
+                        other=float("-inf")).to(tl.float32)
+            m_new = tl.maximum(m, tl.max(x, axis=0))
+            s = s * tl.exp2((m - m_new) * 1.4426950408889634) + tl.sum(
+                tl.exp2((x - m_new) * 1.4426950408889634), axis=0)
+            m = m_new
+        lse = m + tl.log2(s) * 0.6931471805599453
+        lab = tl.load(lab_ptr + row)
+        ll = tl.load(row_ptr + lab).to(tl.float32)
+        tl.store(nll_ptr + row, lse - ll)
+        tl.store(lse_ptr + row, lse)
+
+    @triton.jit
     def xent_bwd_kernel(x_ptr, lab_ptr, lse_ptr, g_ptr, dx_ptr, R, V,
                         stride_x, stride_dx, BLOCK_R: tl.constexpr,
                         BLOCK_V: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_V)
+        cols = tl.program_id(1) * BLOCK_V + tl.arange(0, BLOCK_V)
         rmask = rows < R
         mask = rmask[:, None] & (cols[None, :] < V)
-        x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
+        rows64 = rows.to(tl.int64)
+        x = tl.load(x_ptr + rows64[:, None] * stride_x + cols[None, :],
                     mask=mask, other=0.0).to(tl.float32)
         lse = tl.load(lse_ptr + rows, mask=rmask, other=0.0)
         g = tl.load(g_ptr + rows, mask=rmask, other=0.0)
@@ -80,14 +114,18 @@ def _kernels():
         p = tl.exp(x - lse[:, None])
         onehot = tl.where(cols[None, :] == lab[:, None], 1.0, 0.0)
         d = (p - onehot) * g[:, None]
-        tl.store(dx_ptr + rows[:, None] * stride_dx + cols[None, :],
+        tl.store(dx_ptr + rows64[:, None] * stride_dx + cols[None, :],
                  d.to(dx_ptr.dtype.element_ty), mask=mask)
 
-    return triton, xent_fwd_kernel, xent_bwd_kernel
+    return triton, xent_fwd_kernel, xent_bwd_kernel, xent_fwd_wide_kernel
 
 
 def _blocks(v):
-    """The backward's (rows, classes) block: up to 4096 values."""
+    """The backward's (rows, classes) block: up to 4096 values, or the
+    whole row up to ``MAX_V`` classes; ``WIDE_V`` columns of one row past
+    that."""
+    if v > MAX_V:
+        return 1, WIDE_V
     block_v = 1 << max(0, (v - 1).bit_length())
     block_r = max(1, min(64, 4096 // block_v))
     return block_r, block_v
@@ -109,9 +147,9 @@ def _check(x, labels, *rows_f32):
                          "CUDA device")
     if x.dtype not in DTYPES:
         raise TypeError(f"softmax_xent kernel takes {DTYPES}, got {x.dtype}")
-    if x.dim() != 2 or x.stride(1) != 1 or not 0 < x.shape[1] <= MAX_V:
+    if x.dim() != 2 or x.stride(1) != 1 or not 0 < x.shape[1] < 2 ** 31:
         raise ValueError(f"softmax_xent kernel: logits (R, V) with unit "
-                         f"column stride and V <= {MAX_V}; got "
+                         f"column stride and 0 < V < 2**31; got "
                          f"{tuple(x.shape)} strides {x.stride()}")
     r = x.shape[0]
     if labels.dtype != torch.int64 or labels.shape != (r,) \
@@ -127,14 +165,18 @@ def xent_fwd(x, labels):
     """x: (R, V) logits on the card; labels: (R,) int64 valid class ids.
     Returns per-row ``(nll, lse)``, both (R,) float32."""
     _check(x, labels)
-    triton, fwd, _ = _kernels()
+    triton, fwd, _, fwd_wide = _kernels()
     r, v = x.shape
     nll = torch.empty(r, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
-    block_r, block_v, warps = _fwd_blocks(v)
-    fwd[(triton.cdiv(r, block_r),)](x, labels, nll, lse, r, v, x.stride(0),
-                                    BLOCK_R=block_r, BLOCK_V=block_v,
-                                    num_warps=warps)
+    if v > MAX_V:
+        fwd_wide[(r,)](x, labels, nll, lse, v, x.stride(0), BLOCK_V=WIDE_V,
+                       num_warps=8)
+    else:
+        block_r, block_v, warps = _fwd_blocks(v)
+        fwd[(triton.cdiv(r, block_r),)](x, labels, nll, lse, r, v,
+                                        x.stride(0), BLOCK_R=block_r,
+                                        BLOCK_V=block_v, num_warps=warps)
     LAUNCHES["xent_fwd"] += 1
     return nll, lse
 
@@ -143,13 +185,12 @@ def xent_bwd(x, labels, lse, g):
     """``(softmax(x) - onehot) * g`` per row in ``x.dtype``; lse, g: (R,)
     float32."""
     _check(x, labels, lse, g)
-    triton, _, bwd = _kernels()
+    triton, _, bwd, _ = _kernels()
     r, v = x.shape
     dx = torch.empty((r, v), dtype=x.dtype, device=x.device)
     block_r, block_v = _blocks(v)
-    bwd[(triton.cdiv(r, block_r),)](x, labels, lse, g, dx, r, v,
-                                    x.stride(0), dx.stride(0),
-                                    BLOCK_R=block_r, BLOCK_V=block_v,
-                                    num_warps=4)
+    bwd[(triton.cdiv(r, block_r), triton.cdiv(v, block_v))](
+        x, labels, lse, g, dx, r, v, x.stride(0), dx.stride(0),
+        BLOCK_R=block_r, BLOCK_V=block_v, num_warps=4)
     LAUNCHES["xent_bwd"] += 1
     return dx

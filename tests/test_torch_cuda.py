@@ -8,7 +8,9 @@ one (and no JAX, which tests/conftest.py imports):
 Tolerances: permute and the bucket gathers (K4a/K4b) bitwise; the
 quantize/dequantize gathers (K5a/K5b) bitwise in bytes, scales and
 values; bn_act 1 ulp of the working type; xent 1e-5 relative (f32 math)
-forward, 1e-5 relative or 1 bf16 ulp backward. The sharded epoch at
+forward, 1e-5 relative or 1 bf16 ulp backward, also above the one-block
+width (V 50,257) and on the rows that straddle element 2**31 of a
+131,073 x 16,384 bf16 logits tensor. The sharded epoch at
 world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
 rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
 and 2e-2 in bf16 (tests/test_kernels.py's bounds), and a 2-layer f32
@@ -34,7 +36,9 @@ from repro_torch.kernels.quant_permute import ref as quant_ref
 from repro_torch.kernels.slstm_scan import kernel as slstm_k
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan import ref as slstm_ref
+from repro_torch.kernels.softmax_xent import kernel as xent_k
 from repro_torch.kernels.softmax_xent import ops as xent_ops
+from repro_torch.kernels.softmax_xent import ref as xent_ref
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -82,7 +86,8 @@ def test_bn_act_kernel(dev, g, rows, c, relu, dtype):
 
 
 @pytest.mark.parametrize("rows,v", [(800, 100), (37, 13)] + [
-    (rows, v) for rows in (1, 33, 1000) for v in (13, 100, 1000)])
+    (rows, v) for rows in (1, 33, 1000) for v in (13, 100, 1000)] + [
+    (3, 50257), (64, 50257)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_softmax_xent_kernels(dev, rows, v, dtype):
     x = (3 * torch.randn(rows, v, device=dev)).to(dtype).requires_grad_()
@@ -102,8 +107,30 @@ def test_softmax_xent_kernels(dev, rows, v, dtype):
     assert bool((d <= rel * g_cpu.double().abs() + 1e-7).all())
 
 
-@pytest.mark.parametrize("rows,feat,sc", [(800, (32, 32, 16), (1, 800)),
-                                         (37, (5, 7, 3), (8, 5))])
+def test_softmax_xent_rows_past_2_31_elements(dev):
+    """131,073 rows of 16,384 bf16 logits (~4.3 GB each for x and dx): row
+    131,072 starts at element 2**31, where 32-bit row offsets wrap. Both
+    kernels on the rows around it (and the first) against the plain
+    version computed on those rows only."""
+    r, v = 131073, 16384
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(r, v, device=dev, dtype=torch.bfloat16, generator=gen)
+    lab = torch.randint(0, v, (r,), device=dev, generator=gen)
+    g = torch.rand(r, device=dev, generator=gen)
+    nll, lse = xent_k.xent_fwd(x, lab)
+    dx = xent_k.xent_bwd(x, lab, lse, g)
+    for rows in (slice(0, 2), slice(131070, 131073)):
+        nll_p, lse_p = xent_ref.xent_fwd(x[rows], lab[rows])
+        assert torch.allclose(nll[rows], nll_p, rtol=1e-5, atol=1e-5)
+        assert torch.allclose(lse[rows], lse_p, rtol=1e-5, atol=1e-5)
+        want = xent_ref.xent_bwd(x[rows], lab[rows], lse[rows], g[rows])
+        assert _within(dx[rows], want, torch.finfo(torch.bfloat16).eps)
+
+
+@pytest.mark.parametrize("rows,feat,sc", [
+    (800, (32, 32, 16), (1, 800)), (37, (5, 7, 3), (8, 5)),
+    # a slack-buffered plan of the pool (880 rows from 800), 32-byte rows
+    (800, (32, 32, 16), (4, 220)), (37, (4, 4), (3, 20))])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_bucket_gather_kernels(dev, rows, feat, sc, dtype, idx_dtype):
@@ -227,7 +254,11 @@ def test_rmsnorm_kernel(dev, shape, offset, dtype):
     # a window that spans two kv tiles
     (1, 127, (8, 2), 128, True, None), (2, 128, (8, 2), 128, False, None),
     (1, 129, (8, 1), 128, True, None), (1, 255, (4, 4), 128, False, 64),
-    (1, 400, (8, 2), 128, True, 200)])
+    (1, 400, (8, 2), 128, True, 200),
+    # head_dim 256 (the mma.sync kernel's 32-key tiles): gemma-7b's MHA,
+    # recurrentgemma-9b's MQA and its 2048 window across many tiles
+    (1, 300, (4, 4), 256, True, None), (2, 100, (4, 1), 256, True, None),
+    (1, 129, (2, 2), 256, False, None), (1, 2500, (4, 1), 256, True, 2048)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
     h, k = hk
@@ -243,7 +274,7 @@ def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
 
 
 @pytest.mark.parametrize("scale", [-0.2, 0.0])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_attention_any_scale(dev, scale, d):
     """The Hopper kernel (D 64, 128) takes its row max on the raw scores,
     so the wrapper moves a negative scale into q; scale 0 is uniform
@@ -257,7 +288,7 @@ def test_flash_attention_any_scale(dev, scale, d):
     assert torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_attention_reads_strided_views(dev, d):
     """q, k, v as views of one fused projection (no copy), like a packed
     qkv: the kernel reads them through their strides."""

@@ -13,7 +13,9 @@ logits-grad 1e-5 in f32 and 1e-2 in bf16; rmsnorm (K6) 1e-5 in f32 and
 JAX package's ``attention_ref`` in f32, and 2e-3 (f32) / 2e-2 (bf16) of
 the Pallas kernel, tests/test_kernels.py's bounds. The shapes are
 tests/test_kernels.py's fuzz shapes (ragged widths, repeated indices,
-B != R). Each differentiable ``autograd.Function`` also passes
+B != R), plus flash attention at head_dim 256 (MHA and MQA, causal and
+windowed) and softmax_xent at 20,000 classes, past the port's one-block
+width. Each differentiable ``autograd.Function`` also passes
 ``torch.autograd.gradcheck`` in float64 on the plain path.
 """
 import jax
@@ -342,7 +344,8 @@ def _labels(rng, rows, v, ignore):
 
 @pytest.mark.parametrize("rows,v,ignore", [
     (1, 2, "none"), (37, 11, "some"), (40, 100, "none"), (33, 100, "some"),
-    (9, 128, "all"), (25, 200, "some")])
+    (9, 128, "all"), (25, 200, "some"),
+    (4, 20000, "some")])    # wider than the port's one-block MAX_V
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_softmax_xent_plain_matches_pallas(rows, v, ignore, dtype):
     rng = np.random.default_rng(rows * 17 + v)
@@ -399,7 +402,10 @@ def test_rmsnorm_bf16_3d_matches_pallas():
 FLASH_SHAPES = [  # (b, s, (h, k), d, causal, window): the fuzz ranges
     (1, 16, (4, 2), 32, True, None), (2, 64, (4, 4), 64, False, None),
     (1, 100, (8, 1), 32, True, 16), (2, 128, (4, 2), 64, True, None),
-    (1, 100, (4, 4), 64, False, 16), (2, 16, (8, 1), 64, False, None)]
+    (1, 100, (4, 4), 64, False, 16), (2, 16, (8, 1), 64, False, None),
+    # head_dim 256 (gemma-7b MHA, recurrentgemma-9b MQA with a window)
+    (1, 64, (4, 4), 256, True, None), (1, 48, (4, 1), 256, True, 16),
+    (2, 32, (2, 1), 256, False, None), (1, 40, (2, 2), 256, False, 8)]
 
 
 @pytest.mark.parametrize("b,s,hk,d,causal,window", FLASH_SHAPES)
