@@ -113,7 +113,7 @@ SYMBOL = {"collector_permute": "permute_rows", "bn_act": "bn_act_kernel",
           "quant_bucket_permute": "quant_bucket_rows",
           "dequant_unbucket_permute": "dequant_recv_rows",
           "rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd",
-          "slstm_scan": "slstm_scan_kernel"}
+          "slstm_scan": "slstm_scan_sliced"}
 _CLOCK = {"start": time.perf_counter(), "last": None}
 
 
@@ -225,6 +225,15 @@ def kernel_resources():
                            x.stride(0), BLOCK_R=br, BLOCK_V=bv, num_warps=4)
     print(f"  K3b {POOL} x {CLASSES} bf16, {math.ceil(POOL / br)} programs "
           f"of {br} rows: {json.dumps(res)}")
+    pl = slstm_k.card_plan(LM_BATCH, 4, 512)
+    res = slstm_k.resources(pl.smem)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  K8 at the prefill's B {LM_BATCH}, H 4, Dh 512: {json.dumps(dict(
+        registers=res['registers'], threads=res['threads'],
+        smem_dynamic=pl.smem, units=pl.units, rows=pl.rows,
+        blocks_per_launch=[n * pl.slices for _, n in pl.launches],
+        blocks_per_sm=res['blocks_per_sm'],
+        co_resident=sms * res['blocks_per_sm']))}")
 
 
 # --------------------------------------------------------------------------
@@ -693,15 +702,22 @@ def kernels_lm():
     return main
 
 
-def check_slstm(b, s, h, dh, scale=None, time=True):
+def check_slstm(b, s, h, dh, scale=None, time=True, fused=False):
     """K8 against its plain version on random (B, S, H, Dh) f32 inputs,
     within 3e-4 (tests/test_kernels.py's kernel-to-ref bound). R is drawn
     at the model's scale, 1/sqrt(Dh), unless ``scale`` (the JAX test's
-    0.3) is given. Returns the max error; with ``time``, also times and
-    prints the row (work: 2 B 4 H Dh^2 S FLOPs of recurrent products)."""
+    0.3) is given; ``fused``: the four preactivations are views of one
+    (B, S, H, 4 Dh) projection, as the model's could be. Returns the max
+    error; with ``time``, also times and prints the row (work: 2 B 4 H Dh^2
+    S FLOPs of recurrent products), its time a step and its share of the
+    bound."""
     gen = torch.Generator(device=DEV).manual_seed(b * 1000 + s + dh)
-    pres = [torch.randn(b, s, h, dh, device=DEV, generator=gen)
-            for _ in range(4)]
+    if fused:
+        x = torch.randn(b, s, h, 4 * dh, device=DEV, generator=gen)
+        pres = [x[..., g * dh:(g + 1) * dh] for g in range(4)]
+    else:
+        pres = [torch.randn(b, s, h, dh, device=DEV, generator=gen)
+                for _ in range(4)]
     R = torch.randn(4, h, dh, dh, device=DEV, generator=gen) * (
         dh ** -0.5 if scale is None else scale)
 
@@ -722,15 +738,48 @@ def check_slstm(b, s, h, dh, scale=None, time=True):
            lambda: slstm_k.slstm_scan(*pres, R), plain,
            5 * got.numel() * 4 + R.numel() * 4, 2 * b * 4 * h * dh * dh * s,
            heavy=True)
+    row = RESULTS[-1]
+    print(f"slstm_scan {(b, s, h, dh)}: {row['ms'] / s * 1e3:.3f} us a step, "
+          f"{100 * row['bound_ms'] / row['ms']:.2f} % of the bound; plan "
+          f"{slstm_k.card_plan(b, h, dh)}")
     return err
+
+
+def slstm_anatomy(ms):
+    """K8's time a step at the prefill shape (``ms`` a launch) beside the
+    same launch with one step (the one-time loads of R), one batch row
+    (the same plan and products, a quarter of the h words exchanged) and
+    one head (which the plan cuts into narrower slices over as many SMs:
+    a quarter of the products a block, the same exchange). Eager, 3
+    calls; each with its plan's units and blocks."""
+    def one(b, s, h):
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        pres = [torch.randn(b, s, h, 512, device=DEV, generator=gen)
+                for _ in range(4)]
+        R = torch.randn(4, h, 512, 512, device=DEV, generator=gen) / 512 ** .5
+        pl = slstm_k.card_plan(b, h, 512)
+        return (eager_ms(lambda: slstm_k.slstm_scan(*pres, R), iters=3),
+                f"{pl.units} units x {pl.groups * h * pl.slices} blocks")
+    (s1, _), (b1, b1_plan), (h1, h1_plan) = (
+        one(LM_BATCH, 1, 4), one(1, LM_SEQ, 4), one(LM_BATCH, LM_SEQ, 1))
+    step = (ms - s1) / (LM_SEQ - 1) * 1e3
+    print(f"slstm_scan anatomy at B {LM_BATCH}, S {LM_SEQ}, H 4, Dh 512: "
+          f"{step:.3f} us a step after a {s1 * 1e3:.1f} us first step; "
+          f"B 1 ({b1_plan}): {b1 / LM_SEQ * 1e3:.3f} us a step; H 1 "
+          f"({h1_plan}): {h1 / LM_SEQ * 1e3:.3f} us a step")
 
 
 def kernels_xlstm():
     """K8 at xlstm-1.3b's prefill shape (phase 11: B 4 x S 4096, 4 heads,
-    Dh 512) and the fuzz grid of tests/test_kernels.py plus Dh 64 (the
-    smoke config's)."""
+    Dh 512), the fuzz grid of tests/test_kernels.py plus Dh 64 (the smoke
+    config's), and the launch plan's edges at the model's width: B 1 and
+    5, S 1, a ragged last slice (Dh 509), two launches (H 12), the
+    preactivations as views of one fused projection, and slices of more
+    than 32 units at 4 rows a block (H 40, Dh 128), whose 4 x 4 units
+    partial-sum totals outnumber a block's threads."""
     check_slstm(LM_BATCH, LM_SEQ, 4, 512)
     main = {"slstm_scan": RESULTS[-1]}
+    slstm_anatomy(main["slstm_scan"]["ms"])
     worst = 0.0
     for b in range(1, 6):
         for s in (4, 20, 64, 70):
@@ -739,6 +788,25 @@ def kernels_xlstm():
                                                time=False))
     print(f"slstm_scan fuzz grid (B 1-5, S 4/20/64/70, H/Dh 2/8 4/16 1/32 "
           f"2/64, R at 0.3): max err {worst:.3e} (tol 3e-4)")
+    edges = {}
+    for name, (b, s, h, dh, fused) in {
+            "B 1": (1, 64, 4, 512, False), "B 5": (5, 64, 4, 512, False),
+            "S 1": (4, 1, 4, 512, False), "Dh 509": (4, 64, 4, 509, False),
+            "H 12": (2, 64, 12, 512, False),
+            "fused views": (3, 64, 4, 512, True),
+            "units > 32": (4, 64, 40, 128, False)}.items():
+        pl = slstm_k.card_plan(b, h, dh)
+        edges[name] = (check_slstm(b, s, h, dh, time=False, fused=fused),
+                       pl.units, dh - (pl.slices - 1) * pl.units,
+                       len(pl.launches))
+    if (edges["H 12"][3] < 2 or edges["Dh 509"][2] == edges["Dh 509"][1]
+            or 16 * edges["units > 32"][1] <= slstm_k.THREADS):
+        raise AssertionError(f"the plan-edge shapes missed their edge: "
+                             f"{edges}")
+    print("slstm_scan plan edges (max err, units, last slice's units, "
+          "launches): " + "; ".join(
+              f"{k} {e:.3e} {u} {last} {n}"
+              for k, (e, u, last, n) in edges.items()) + " (tol 3e-4)")
     return main
 
 
@@ -906,7 +974,7 @@ def profile_steps(epoch, steps=2, what="warm steps"):
     for name, sym in SYMBOL.items():
         us = sum(r[1] for r in rows if sym in r[0])
         n = sum(r[2] for r in rows if sym in r[0])
-        by_name[name] = n
+        by_name[name] = (n, us)
         if n:
             print(f"  {name}: {us / 1e3:.3f} ms over {n} launches "
                   f"({100 * us / max(busy, 1):.2f}% of device time)")
@@ -1102,7 +1170,7 @@ def sharded_path():
             raise AssertionError(f"int8 wire differs by {gap.tolist()}")
         seen = profile_steps(lambda k: sharded_epoch(run, group, 3, "int8",
                                                      steps=k))
-        if not (seen["bucket_permute"] and seen["unbucket_permute"]):
+        if not (seen["bucket_permute"][0] and seen["unbucket_permute"][0]):
             raise AssertionError(f"the sharded steps ran no K4a/K4b "
                                  f"kernel ({SYMBOL['bucket_permute']}"
                                  f", {SYMBOL['unbucket_permute']}): {seen}")
@@ -1503,8 +1571,15 @@ def xlstm_prefill():
                 or not finite:
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  f"finite={finite}")
-        profile_steps(lambda k: prefill(params, batch), steps=1,
-                      what="warm prefill")
+        seen = profile_steps(lambda k: prefill(params, batch), steps=1,
+                             what="warm prefill")
+        n_k8, us_k8 = seen["slstm_scan"]
+        print(f"K8 ({SYMBOL['slstm_scan']}) in the warm prefill's profile: "
+              f"{us_k8 / 1e3:.3f} ms of device time over {n_k8} launches "
+              f"({us_k8 / 1e3 / max(n_k8, 1):.3f} ms a launch)")
+        if n_k8 != n_slstm:
+            raise AssertionError(f"the prefill's profile shows {n_k8} K8 "
+                                 f"launches, not {n_slstm}")
 
         # the same prefill on the plain sLSTM path: print only, bf16 over
         # 48 blocks has no reference bound

@@ -40,35 +40,33 @@ def nvcc_path():
     return found
 
 
-def _target(src, nvcc):
+def _target(src, nvcc, flags=NVCC_FLAGS):
     digest = hashlib.sha256(src.read_bytes() + " ".join(
-        (nvcc,) + NVCC_FLAGS).encode()).hexdigest()[:16]
+        (nvcc,) + tuple(flags)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-@functools.cache
-def build_all():
-    """Compile every ``csrc/*.cu`` in parallel (one ``nvcc`` each) and load
-    them. Returns ``(libraries by source stem, seconds, compiler log)``."""
-    nvcc = nvcc_path()
+def _compile(items, nvcc):
+    """Start one ``nvcc`` for each (source, flags) item not built yet, all
+    at once, and wait for all of them. Returns the compiler log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     jobs, log = {}, []
     try:
-        for src in sorted(CSRC.glob("*.cu")):
-            so = _target(src, nvcc)
-            if so.exists():
+        for src, flags in items:
+            so = _target(src, nvcc, flags)
+            if so.exists() or so in jobs:
                 continue
             tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            jobs[src.stem] = (subprocess.Popen(
+            cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
+            jobs[so] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, so)
-        for name, (proc, tmp, so) in jobs.items():
+                text=True), tmp, " ".join(flags[len(NVCC_FLAGS):]))
+        for so, (proc, tmp, extra) in jobs.items():
             out, _ = proc.communicate()
-            log.append(f"== {name}.cu\n{out}")
+            name = so.stem.rsplit("-", 1)[0]
+            log.append(f"== {name}.cu {extra}".rstrip() + f"\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu "
+                raise RuntimeError(f"nvcc failed on {name}.cu {extra} "
                                    f"(exit {proc.returncode}):\n{out}")
             os.replace(tmp, so)
     finally:
@@ -77,9 +75,32 @@ def build_all():
                 proc.kill()
                 proc.wait()
             tmp.unlink(missing_ok=True)
-    libs = {src.stem: ctypes.CDLL(str(_target(src, nvcc)))
-            for src in sorted(CSRC.glob("*.cu"))}
-    return libs, time.perf_counter() - t0, "\n".join(log)
+    return "\n".join(log)
+
+
+@functools.cache
+def build_all():
+    """Compile every ``csrc/*.cu`` in parallel (one ``nvcc`` each) and load
+    them. Returns ``(libraries by source stem, seconds, compiler log)``."""
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    srcs = sorted(CSRC.glob("*.cu"))
+    log = _compile([(src, NVCC_FLAGS) for src in srcs], nvcc)
+    libs = {src.stem: ctypes.CDLL(str(_target(src, nvcc))) for src in srcs}
+    return libs, time.perf_counter() - t0, log
+
+
+def variants(name, defines):
+    """Measurement builds of ``csrc/<name>.cu``: one for each dict of
+    preprocessor macros in ``defines`` (``{"SFPL_SLSTM_PROBE": 1}`` is
+    ``-DSFPL_SLSTM_PROBE=1``), compiled at once beside the default builds.
+    Returns ``(libraries in the order of defines, compiler log)``."""
+    nvcc = nvcc_path()
+    src = CSRC / f"{name}.cu"
+    flags = [NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in d.items())
+             for d in defines]
+    log = _compile([(src, f) for f in flags], nvcc)
+    return [ctypes.CDLL(str(_target(src, nvcc, f))) for f in flags], log
 
 
 def import_triton():

@@ -16,10 +16,16 @@ rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
 and 2e-2 in bf16 (tests/test_kernels.py's bounds), and a 2-layer f32
 prefill through K7 within 2e-3 of the plain attention path. The sLSTM scan
 (K8) 3e-4 of its plain version (tests/test_kernels.py's kernel-to-ref
-bound) on the fuzz grid, strided inputs and every batch block; a 1-group
+bound) on the fuzz grid, strided inputs (views of one fused projection)
+and its launch plan's edges (B 1 and 5, S 1, a ragged last slice, two
+launches, Dh 1, slices of more than 32 units), the plan's CPU mirror of a
+block's shared memory equal to the C side's, and a CUDA-graph
+replay of it equal to the eager call; a 1-group
 f32 xLSTM prefill through K8 within 2e-3 of the plain sLSTM path
 (tests/test_kernels.py's bound for the same comparison).
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -339,7 +345,8 @@ def test_slstm_scan_kernel(dev, b, s, hd):
     assert torch.allclose(out, want, rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("b,s,h,dh", [(3, 33, 2, 64), (5, 9, 4, 512)])
+@pytest.mark.parametrize("b,s,h,dh", [(3, 33, 2, 64), (5, 9, 4, 512),
+                                     (3, 40, 4, 512)])
 def test_slstm_scan_kernel_strided(dev, b, s, h, dh):
     """The four preactivations as views of one fused projection (no copy),
     at a small head and at the model's Dh 512."""
@@ -351,6 +358,82 @@ def test_slstm_scan_kernel_strided(dev, b, s, h, dh):
     want, _ = slstm_ref.slstm_scan_ref(*pres, R, slstm_ref.initial_state(
         b, h, dh, dev))
     assert torch.allclose(out, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("edge,b,s,h,dh", [
+    ("B 1", 1, 64, 4, 512), ("B 5", 5, 64, 4, 512), ("S 1", 4, 1, 4, 512),
+    ("ragged last slice", 4, 40, 4, 509), ("two launches", 2, 40, 12, 512),
+    ("Dh 1", 2, 9, 3, 1), ("wide slices", 4, 9, 40, 128)])
+def test_slstm_scan_kernel_plan_edges(dev, edge, b, s, h, dh):
+    """The launch plan's edges, within 3e-4: one or five batch rows at the
+    model's width, one step, a last slice narrower than the rest, a plan of
+    two launches, one unit a head, and slices so wide (more than 32 units,
+    4 rows a block) that a block's 4 x 4 units partial-sum totals outnumber
+    its threads."""
+    pl = slstm_k.card_plan(b, h, dh)
+    if edge == "ragged last slice":
+        assert dh % pl.units
+    if edge == "two launches":
+        assert len(pl.launches) == 2
+    if edge == "wide slices":
+        assert pl.rows >= 4 and 16 * pl.units > slstm_k.THREADS
+    g = torch.Generator(device=dev).manual_seed(b * 7 + s)
+    pres = [torch.randn(b, s, h, dh, device=dev, generator=g)
+            for _ in range(4)]
+    R = torch.randn(4, h, dh, dh, device=dev, generator=g) * dh ** -0.5
+    before = K.LAUNCHES["slstm_scan"]
+    out = slstm_ops.slstm_scan(*pres, R)
+    assert K.LAUNCHES["slstm_scan"] == before + 1
+    want, _ = slstm_ref.slstm_scan_ref(*pres, R, slstm_ref.initial_state(
+        b, h, dh, dev))
+    assert torch.allclose(out, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("dh", [1, 8, 100, 128, 509, 512])
+def test_slstm_scan_smem_mirror_matches_c(dev, dh):
+    """kernel.smem_bytes, which the plan's CPU tests use, equals the C
+    side's layout (sfpl_slstm_scan_smem), which the card's plan uses, at
+    every slice width and batch grouping the kernel takes."""
+    for units in range(1, min(dh, slstm_k.THREADS // 4) + 1):
+        for rows in (1, 2, 3, 4, 5, 8, 16, slstm_k.THREADS // units):
+            if rows * units <= slstm_k.THREADS:
+                assert slstm_k.smem_of(dh, units, rows) == \
+                    slstm_k.smem_bytes(dh, units, rows), (dh, units, rows)
+
+
+def test_slstm_scan_c_entry_rejects_short_shared_memory(dev):
+    """The C entry refuses a launch whose dynamic shared memory is smaller
+    than its layout needs (cudaErrorInvalidValue, 1), before launching."""
+    import ctypes
+    lib = slstm_k._lib()
+    need = slstm_k.smem_of(512, 16, 4)
+    strides = (ctypes.c_int64 * 12)(*([512] * 12))
+    args = [None] * 7 + [4, 8, 4, 512, ctypes.addressof(strides), 4, 16, 32,
+                         0, 4]
+    assert lib.sfpl_slstm_scan(*args, need - 4, None) == 1
+
+
+def test_slstm_scan_kernel_in_a_cuda_graph(dev):
+    """Captured in a CUDA graph and replayed, the launch starts from a
+    fresh exchange ring each time and gives the eager result."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    pres = [torch.randn(2, 30, 4, 512, device=dev, generator=g)
+            for _ in range(4)]
+    R = torch.randn(4, 4, 512, 512, device=dev, generator=g) * 512 ** -0.5
+    want = slstm_k.slstm_scan(*pres, R)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        slstm_k.slstm_scan(*pres, R)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = slstm_k.slstm_scan(*pres, R)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_slstm_scan_kernel_rejects_what_it_does_not_take(dev):
