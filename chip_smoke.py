@@ -12,7 +12,11 @@ the prefill through the flash-attention kernel (phase 8), 2-layer f32
 checks of prefill, cached decode and the continuous-batching scheduler
 (phase 9), and serving (phase 10); then xlstm-1.3b at full width: the
 prefill through the sLSTM-scan kernel (phase 11), 1-group f32 checks of
-prefill and cached decode (phase 12), and serving (phase 13). Each phase
+prefill and cached decode (phase 12), and serving (phase 13); then
+gemma-7b at full width: the prefill through the flash-attention kernel at
+head_dim 256 (phase 14), 2-layer f32 checks as phase 9's and a 2-layer
+bf16 prefill against the plain attention path, with minitron-8b's and
+phi3-medium-14b's at D 128 (phase 15), and serving (phase 16). Each phase
 prints its seconds. It prints, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
@@ -91,6 +95,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
     "slstm_scan": "src/repro/kernels/slstm_scan/kernel.py:73",
 }
+# K7 at head_dim 256 (gemma-7b) has a row of its own in the kernels line
+REPLACES["flash_attention_d256"] = REPLACES["flash_attention"]
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bn_act": ("cuda", bn_k.SOURCE),
          "xent_fwd": ("triton", xent_k.SOURCE),
@@ -102,6 +108,7 @@ ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "rmsnorm": ("triton", rms_k.SOURCE),
          "flash_attention": ("cuda", flash_k.SOURCE),
          "slstm_scan": ("cuda", slstm_k.SOURCE)}
+ROUTE["flash_attention_d256"] = ROUTE["flash_attention"]
 # the kernels of the single-device path (phases 3-5); the sharded path
 # (phase 6) adds the other four
 SINGLE_DEVICE = ("collector_permute", "bn_act", "xent_fwd", "xent_bwd")
@@ -206,7 +213,12 @@ def kernel_resources():
     """K7's kernels (the runtime's attributes and occupancy) and K3f/K3b's
     at the main path's 800 x 100 bf16 (their compiled binaries)."""
     for d in (256, 128, 64, 32):
-        print(f"  K7 bf16 D {d}: {json.dumps(flash_k.resources(d))}")
+        res = flash_k.resources(d)
+        print(f"  K7 bf16 D {d}: {json.dumps(res)}")
+        if d in flash_k.TMA_HEAD_DIMS and (res["kernel"] != "hopper"
+                                           or res["local_bytes"] != 0):
+            raise AssertionError(f"K7 bf16 D {d}: not the spill-free "
+                                 f"Hopper kernel: {res}")
     print(f"  K7 f32 D 256: "
           f"{json.dumps(flash_k.resources(256, torch.float32))}")
     _, fwd, bwd, _ = xent_k._kernels()
@@ -634,7 +646,9 @@ LM_BATCH, LM_SEQ = 4, 4096
 
 def kernels_lm():
     """K6 at qwen3-8b's norm shapes and the ragged widths of the JAX tests;
-    K7 at the prefill's shape, one long sequence, and the fuzz grid."""
+    K7 at the prefill's shape, one long sequence, and the fuzz grid; K7 at
+    head_dim 256 at gemma-7b's and recurrentgemma-9b's shapes and over its
+    tile edges."""
     main = {}
     check_rmsnorm(16384, 4096, torch.bfloat16)
     main["rmsnorm"] = RESULTS[-1]
@@ -676,10 +690,14 @@ def kernels_lm():
     print(f"flash_attention bf16 D 128 grid (S 100/127/128/129/255/1000, "
           f"H/K 32/8 8/1, causal or not, window none/64, and a packed-qkv "
           f"view at S 1000): max err {worst:.3e} (tol 2e-2)")
-    # head_dim 256: gemma-7b's prefill attention (16 heads, MHA) and
-    # recurrentgemma-9b's local attention (16 heads over 1, window 2048),
-    # then a grid over the mma.sync kernel's 64-row q and 32-key tiles
+    # head_dim 256 on the Hopper kernel (64-key K / V tiles): gemma-7b's
+    # prefill attention (16 heads, MHA) at batch 1 and at the prefill's
+    # shape (phase 14), and recurrentgemma-9b's local attention (16 heads
+    # over 1, window 2048), each beside SDPA; then the grid of PR 16 (S
+    # 31-200 and 2500, both dtypes) and one over the Hopper kernel's edges
     check_flash(1, LM_SEQ, 16, 16, 256, torch.bfloat16, library=True)
+    check_flash(LM_BATCH, LM_SEQ, 16, 16, 256, torch.bfloat16, library=True)
+    main["flash_attention_d256"] = RESULTS[-1]
     check_flash(1, LM_SEQ, 16, 1, 256, torch.bfloat16, window=2048,
                 library=True)
     worst = {}
@@ -699,6 +717,19 @@ def kernels_lm():
           "or not, window none/40; S 2500 window 2048; a packed-qkv view): "
           "max err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + " (tol 2e-3 f32, 2e-2 bf16)")
+    # the Hopper kernel's ragged edges at D 256: S around its 64-key K / V
+    # and 128-row q tiles, where two key tiles cross a q tile's diagonal
+    worst = 0.0
+    for s in (63, 64, 65, 127, 128, 129, 1000):
+        for h, kh in ((4, 4), (4, 1)):
+            for causal in (True, False):
+                for window in (None, 40):
+                    worst = max(worst, check_flash(
+                        2, s, h, kh, 256, torch.bfloat16, causal, window,
+                        time=False))
+    print(f"flash_attention bf16 D 256 grid on the Hopper kernel (S 63/64/"
+          f"65/127/128/129/1000, H/K 4/4 4/1, causal or not, window "
+          f"none/40): max err {worst:.3e} (tol 2e-2)")
     return main
 
 
@@ -1245,6 +1276,15 @@ def sharded_entry_point():
 # --------------------------------------------------------------------------
 # phases 8-10: qwen3-8b prefill and serving
 
+def free_device_memory(before):
+    """Collect what earlier phases left and print what is still held."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory in use before the phase ({before} freed): "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
 def lm_init(cfg, seed, arch="qwen3-8b"):
     """Random weights drawn on the card from ``seed`` (no host draw)."""
     spec = get_arch(arch)
@@ -1259,6 +1299,63 @@ def lm_init(cfg, seed, arch="qwen3-8b"):
     return params
 
 
+def full_prefill(arch):
+    """``arch`` at full width, f32 parameters drawn on the card from seed
+    0, bf16 compute, attention through K7: one cold and two warm prefills
+    through ``make_prefill_step`` at B LM_BATCH x S LM_SEQ (wall, tokens/s,
+    peak memory), one K7 launch a layer, finite last-token logits, and a
+    profile of a warm prefill. Returns (spec, cfg, params, tokens, logits,
+    launches, profile by kernel)."""
+    from repro_torch.launch.steps import make_prefill_step
+    spec = get_arch(arch)
+    cfg = spec.make_config(attention_impl="kernel")
+    params = lm_init(cfg, seed=0, arch=arch)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                         generator=gen, device=DEV)
+    batch = {"tokens": toks}
+    prefill = make_prefill_step(spec, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    warm = min(walls)
+    n_tok = LM_BATCH * LM_SEQ
+    print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
+          f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the stacked (num_groups, in, out) weights of the layers
+    dense = sum(a.numel() for a in tree_leaves(params["layers"])
+                if a.dim() == 3)
+    head = 2 * LM_BATCH * cfg.d_model * cfg.vocab_size
+    print(f"dense matmul FLOPs per prefill: {2 * n_tok * dense:.3e} in "
+          f"the layers, {head:.3e} in the last-token unembedding")
+    print(f"launches in one prefill: flash_attention "
+          f"{launches['flash_attention']}, rmsnorm {launches['rmsnorm']} "
+          f"(no model calls K6, as in the JAX package)")
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"prefill launched K7 "
+                             f"{launches['flash_attention']} times, "
+                             f"not once per layer ({cfg.num_layers})")
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not finite:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"finite={finite}")
+    seen = profile_steps(lambda k: prefill(params, batch), steps=1,
+                         what="warm prefill")
+    return spec, cfg, params, toks, logits, launches, seen
+
+
 def lm_prefill():
     phase(f"8. LM prefill: qwen3-8b full width (36 layers), f32 params, "
           f"bf16 compute, attention through K7, make_prefill_step, "
@@ -1267,53 +1364,9 @@ def lm_prefill():
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.nn.linear import embedding_apply
     from repro_torch.nn.norm import rmsnorm_apply
-    spec = get_arch("qwen3-8b")
-    cfg = spec.make_config(attention_impl="kernel")
     with torch.inference_mode():
-        params = lm_init(cfg, seed=0)
-        gen = torch.Generator(device=DEV).manual_seed(1)
-        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
-                             generator=gen, device=DEV)
-        batch = {"tokens": toks}
-        prefill = make_prefill_step(spec, cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        logits = prefill(params, batch)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
-        walls = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            prefill(params, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        warm = min(walls)
-        n_tok = LM_BATCH * LM_SEQ
-        print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
-              f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        # the stacked (num_groups, in, out) weights of the layers
-        dense = sum(a.numel() for a in tree_leaves(params["layers"])
-                    if a.dim() == 3)
-        head = 2 * LM_BATCH * cfg.d_model * cfg.vocab_size
-        print(f"dense matmul FLOPs per prefill: {2 * n_tok * dense:.3e} in "
-              f"the layers, {head:.3e} in the last-token unembedding")
-        print(f"launches in one prefill: flash_attention "
-              f"{launches['flash_attention']}, rmsnorm {launches['rmsnorm']} "
-              f"(no model calls K6, as in the JAX package)")
-        if launches["flash_attention"] != cfg.num_layers:
-            raise AssertionError(f"prefill launched K7 "
-                                 f"{launches['flash_attention']} times, "
-                                 f"not once per layer ({cfg.num_layers})")
-        finite = bool(torch.isfinite(logits).all())
-        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not finite:
-            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                                 f"finite={finite}")
-        profile_steps(lambda k: prefill(params, batch), steps=1,
-                      what="warm prefill")
+        spec, cfg, params, toks, logits, launches, _ = full_prefill(
+            "qwen3-8b")
 
         # the same prefill on the plain attention path, at batch 1 (its
         # f32 scores at S 4096 take 2 GB a layer): print only, bf16 over
@@ -1379,17 +1432,17 @@ def single_greedy(spec, cfg, params, prompt, max_new, max_len):
     return out
 
 
-def lm_checks():
-    phase("9. LM checks at full width, 2 layers, f32 compute: K7 prefill "
-          "against the plain path, cached decode against the forward, "
-          "batched greedy against sequential")
+def lm_checks(arch="qwen3-8b", number="9"):
+    phase(f"{number}. LM checks: {arch} at full width, 2 layers, f32 "
+          f"compute: K7 prefill against the plain path, cached decode "
+          f"against the forward, batched greedy against sequential")
     import dataclasses
     from repro_torch.serving import ContinuousBatcher, Request
-    spec = get_arch("qwen3-8b")
+    spec = get_arch(arch)
     cfg = spec.make_config(num_layers=2, compute_dtype="float32")
     b, s = 2, 200
     with torch.inference_mode():
-        params = lm_init(cfg, seed=2)
+        params = lm_init(cfg, seed=2, arch=arch)
         gen = torch.Generator(device=DEV).manual_seed(3)
         toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                              device=DEV)
@@ -1521,12 +1574,8 @@ def xlstm_prefill():
           f"6 sLSTM), f32 params, bf16 compute, sLSTM through K8, "
           f"make_prefill_step, B {LM_BATCH} x S {LM_SEQ}")
     import dataclasses
-    import gc
     from repro_torch.launch.steps import make_prefill_step
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"device memory in use before the phase (qwen3-8b freed): "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    free_device_memory("qwen3-8b")
     spec = get_arch("xlstm-1.3b")
     cfg = spec.make_config(slstm_impl="kernel")
     n_slstm = cfg.num_layers // cfg.slstm_every
@@ -1678,6 +1727,87 @@ def xlstm_serving():
                              f"{res.stderr[-4000:]}")
 
 
+# --------------------------------------------------------------------------
+# phases 14-16: gemma-7b prefill, checks and serving; minitron-8b and
+# phi3-medium-14b prefills
+
+def gemma_prefill():
+    phase(f"14. LM prefill: gemma-7b full width (28 layers, 16/16 heads, "
+          f"head_dim 256), f32 params, bf16 compute, attention through K7 "
+          f"at D 256, make_prefill_step, B {LM_BATCH} x S {LM_SEQ}")
+    free_device_memory("qwen3-8b and xlstm-1.3b")
+    with torch.inference_mode():
+        _, cfg, params, _, logits, launches, seen = full_prefill("gemma-7b")
+    n_k7, us_k7 = seen["flash_attention"]
+    print(f"K7 ({SYMBOL['flash_attention']}) in the warm prefill's profile: "
+          f"{us_k7 / 1e3:.3f} ms of device time over {n_k7} launches "
+          f"({us_k7 / 1e3 / max(n_k7, 1):.3f} ms a launch; its share of "
+          f"device time is on the profile's flash_attention line)")
+    if n_k7 != cfg.num_layers:
+        raise AssertionError(f"the prefill's profile shows {n_k7} K7 "
+                             f"launches, not {cfg.num_layers}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_prefill_check(arch, b, s, layers=2):
+    """``arch`` at full width and ``layers`` layers, bf16 compute: the
+    prefill's logits at every position through K7 against the plain
+    attention path, finite and within 2e-2 of max |logit|, the bound of
+    tests/test_torch_lm.py::test_prefill_logits_match_jax_bf16 (ROADMAP
+    section 3: bf16 logits are held relative to their scale)."""
+    import dataclasses
+    spec = get_arch(arch)
+    cfg = spec.make_config(num_layers=layers)
+    with torch.inference_mode():
+        params = lm_init(cfg, seed=7, arch=arch)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), device=DEV,
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(8))
+        K.reset_launches()
+        got, _ = spec.model.forward(params, {"tokens": toks},
+                                    dataclasses.replace(
+                                        cfg, attention_impl="kernel"))
+        n_k7 = K.LAUNCHES["flash_attention"]
+        want, _ = spec.model.forward(params, {"tokens": toks}, cfg)
+    gap = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    print(f"{arch} bf16 prefill ({layers} layers, B {b}, S {s}, head_dim "
+          f"{cfg.head_dim}, every position), K7 against plain: max |diff| "
+          f"{gap:.4e} of max |logit| {scale:.3f} ({gap / scale:.3e}; bound "
+          f"2e-2); finite {finite}; {n_k7} K7 launches")
+    if not finite or gap > 2e-2 * scale or n_k7 != layers:
+        raise AssertionError(f"{arch} bf16 prefill through K7: gap {gap}, "
+                             f"scale {scale}, finite {finite}, {n_k7} "
+                             f"launches")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def gemma_checks():
+    lm_checks("gemma-7b", number="15")
+    bf16_prefill_check("gemma-7b", 2, 512)
+    phase("15b. minitron-8b (relu2, 32/8 heads) and phi3-medium-14b "
+          "(SwiGLU, 40/10 heads) at full width, 2 layers, bf16: one "
+          "prefill each through K7 at D 128 against the plain path")
+    for arch in ("minitron-8b", "phi3-medium-14b"):
+        bf16_prefill_check(arch, 2, 512)
+
+
+def gemma_serving():
+    phase("16. gemma-7b serving at full width (28 layers, bf16): serve() at "
+          "batch 4, prompt 64, 32 new tokens")
+    from repro_torch.launch.serve import serve
+    out = serve("gemma-7b", batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.min()) < 0 \
+            or int(out.max()) >= 256000:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -1692,6 +1822,9 @@ def main():
     launches_x = xlstm_prefill()
     xlstm_checks()
     xlstm_serving()
+    launches_g = gemma_prefill()
+    gemma_checks()
+    gemma_serving()
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}
@@ -1705,6 +1838,8 @@ def main():
     path["rmsnorm"] = "phase 8b (rmsnorm_apply(use_kernel=True))"
     launches["slstm_scan"] = launches_x["slstm_scan"]
     path["slstm_scan"] = "phase 11 (one xlstm-1.3b prefill)"
+    launches["flash_attention_d256"] = launches_g["flash_attention"]
+    path["flash_attention_d256"] = "phase 14 (one gemma-7b prefill)"
     lines = []
     for name, row in measured.items():
         route, source = ROUTE[name]

@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
-The port registers the transformer family's qwen3-8b and the xLSTM
-family's xlstm-1.3b; the other architectures of the JAX package, and
-``input_specs`` (its dry-run shape stand-ins), come with later slices.
+The port registers the dense transformers qwen3-8b, gemma-7b,
+minitron-8b and phi3-medium-14b, and the xLSTM family's xlstm-1.3b; the
+other architectures of the JAX package (the MoE and VLM transformers,
+recurrentgemma-9b, whisper), and ``input_specs`` (its dry-run shape
+stand-ins), come with later slices.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ def register(spec: ArchSpec):
     return spec
 
 
-_ARCH_MODULES = ["qwen3_8b", "xlstm_1_3b"]
+_ARCH_MODULES = ["qwen3_8b", "gemma_7b", "minitron_8b", "phi3_medium_14b",
+                 "xlstm_1_3b"]
 _loaded = False
 
 

@@ -14,29 +14,35 @@
 // cores at their full rate (wgmma), fed without stalls, and the scores must
 // never reach device memory.
 //
-// Design of the bf16 path at D 64 and D 128 (flash_fwd_hopper), in the
+// Design of the bf16 path at D 64, 128 and 256 (flash_fwd_hopper), in the
 // shape of FlashAttention-3:
 // - One CTA of 384 threads per (128-row q tile, q head, batch row), one CTA
-//   an SM (164,936 bytes of dynamic shared memory at D 128: Q 32 KiB and a
-//   2-stage ring of 32 KiB K and V tiles): warpgroup 0 is the producer,
-//   warpgroups 1 and 2 are consumers of 64 q rows each. ptxas gives the
-//   kernel 168 registers a thread at launch; the producer drops to 24
-//   (setmaxnreg.dec) and the consumers rise to 240 (setmaxnreg.inc).
+//   an SM: warpgroup 0 is the producer, warpgroups 1 and 2 are consumers
+//   of 64 q rows each. ptxas gives the kernel 168 registers a thread at
+//   launch; the producer drops to 24 (setmaxnreg.dec) and the consumers
+//   rise to 240 (setmaxnreg.inc).
+// - Tiles (struct Smem): Q is 128 rows; K and V tiles are 128 keys, or 64
+//   at D 256 (kv_rows), in a 2-stage ring. Dynamic shared memory: 164,936
+//   bytes at D 128 (Q 32 KiB, 4 x 32 KiB of K and V), 197,704 at D 256 (Q
+//   64 KiB, 4 x 32 KiB): 128-key tiles at D 256 would need 320 KiB.
 // - Loads by TMA. The wrapper computes each tensor map's geometry
 //   (kernel.py::tma_geometry): 4-D (D, heads, S, B) with the tensor's byte
 //   strides, so strided views of a packed qkv load as they are. Boxes are
 //   64 columns (128 bytes, the widest box the 128-byte swizzle takes) by
-//   128 rows, so a D 128 row arrives as two boxes, each 16 KiB of 8-row x
-//   128-byte swizzle atoms. Rows past S are zero-filled by TMA and masked.
-// - One producer thread loads the Q tile once, then K and V tiles of 128
-//   keys into the ring. Each stage has "full" mbarriers for K and for V
-//   (expect_tx of the tile's bytes) and "empty" ones: every consumer thread
-//   arrives on the K one once its Q K^T wgmma retired and on the V one once
-//   its P V wgmma retired, so K is refilled while P V still reads V. The
-//   phase parity flips every wrap of the ring.
-// - S = Q K^T on wgmma.m64n128k16 with Q and K from shared memory, both
-//   K-major (128-byte swizzle, SBO 1024 bytes between 8-row groups, k-steps
-//   32 bytes apart inside an atom and 16 KiB apart across the two boxes).
+//   the tile's rows, so a row of D arrives as D / 64 boxes of 8-row x
+//   128-byte swizzle atoms: a Q box is 16 KiB, a K or V box 16 KiB (128
+//   keys) or 8 KiB (64 keys). Rows past S are zero-filled by TMA and
+//   masked.
+// - One producer thread loads the Q tile once, then K and V tiles into the
+//   ring. Each stage has "full" mbarriers for K and for V (expect_tx of
+//   the tile's bytes) and "empty" ones: every consumer thread arrives on
+//   the K one once its Q K^T wgmma retired and on the V one once its P V
+//   wgmma retired, so K is refilled while P V still reads V. The phase
+//   parity flips every wrap of the ring.
+// - S = Q K^T on wgmma.m64n128k16 (m64n64k16 at D 256) with Q and K from
+//   shared memory, both K-major (128-byte swizzle, SBO 1024 bytes between
+//   8-row groups, k-steps 32 bytes apart inside an atom; across boxes Q
+//   steps by its 16 KiB box and K by its own box, 8 KiB at D 256).
 // - Online softmax in f32 on the accumulator: a quad of threads holds one
 //   row, so the row max and sum take two __shfl_xor_sync. The max is taken
 //   on the raw scores and P = ex2.approx.ftz(S * scale * log2(e) - m) costs
@@ -44,17 +50,22 @@
 //   moves a negative one into q); rows with no live key yet keep a zero
 //   contribution (m = -inf guarded); the finish maps l == 0 to 1, as the
 //   TPU kernel does. Masks (causal iq >= ik, window iq - ik < window, ik < Skv)
-//   are applied only on tiles that cross a bound, chosen once a tile (a
-//   template argument, so unmasked tiles run without a per-score branch);
-//   kv tiles are walked from the diagonal down, so the masked tile comes
-//   first.
-// - O += P V on the register-A form of wgmma.m64n{D}k16: P is rounded to
-//   bf16 in registers (the accumulator of two 8-column groups is the A
-//   fragment of one 16-key k-step, as in FlashAttention-2), and V is read
-//   from shared memory in its stored (key, d) layout, MN-major for this
-//   product, through the instruction's transpose flag (LBO 16 KiB between
-//   the two 64-column boxes, SBO 1024 bytes between 8-key groups). l is
-//   summed from the f32 P.
+//   are applied only on tiles that cross a bound for a consumer's 64 rows,
+//   chosen once a tile (a template argument, so unmasked tiles run without
+//   a per-score branch); kv tiles are walked from the diagonal down, so
+//   the masked tiles come first. At D 256 two 64-key tiles cross a q
+//   tile's diagonal, and the upper one is wholly masked for the first
+//   consumer's rows: it runs masked (P = 0). Skipping such tiles without
+//   a product was measured slower (PERF.md section 6, PR 18).
+// - O += P V on the register-A form of wgmma (m64n64k16 at D 64, m64n128k16
+//   at D 128, two m64n128k16 on the accumulator's halves at D 256): P is
+//   rounded to bf16 in registers (the accumulator of two 8-column groups
+//   is the A fragment of one 16-key k-step, as in FlashAttention-2), and V
+//   is read from shared memory in its stored (key, d) layout, MN-major for
+//   this product, through the instruction's transpose flag (LBO the V box
+//   between 64-column boxes, SBO 1024 bytes between 8-key groups). l is
+//   summed from the f32 P. At D 256 a consumer thread holds O in 128 f32
+//   registers, S in 32 and P in 16: no spill under the 240 of setmaxnreg.
 // - Each consumer runs Q K^T, softmax, P V in turn; the two consumers
 //   drift apart on their own, so one's softmax overlaps the other's wgmma.
 // - Schedule: the grid is (q head, batch row, q tile) with the q tile
@@ -65,28 +76,26 @@
 //   with ~31 waves of CTAs at the prefill's shape the heaviest-first order
 //   already leaves only the lightest tiles for the tail.
 // - Epilogue: each consumer normalises its 64 rows, rounds to bf16, stages
-//   them in its own (now free) rows of the Q buffer in the swizzled layout,
-//   and writes o in (B, S, H, D) with 16-byte stores, skipping rows >= Sq.
+//   them in its own (now free) rows of the Q buffer in the swizzled layout
+//   (exactly the Q tile's 64 KiB at D 256), and writes o in (B, S, H, D)
+//   with 16-byte stores, skipping rows >= Sq.
 //
 // Measured against this design on the card (PERF.md section 6):
 // ping-pong of the two consumers on named barriers, and overlapping one
 // tile's softmax with the next tile's Q K^T inside a warpgroup, were each
 // slower, and a third ring stage changed nothing, so none is kept.
 //
-// bf16 at D 32 and D 256 keeps the FlashAttention-2-style mma.sync kernel
+// bf16 at D 32 keeps the FlashAttention-2-style mma.sync kernel
 // (flash_fwd_kernel): D 32's 64-byte rows want the 64-byte swizzle and a
-// different tiling, and D 256 (gemma-7b, recurrentgemma-9b) is served
-// simply first. At D 256 its key tile halves to 32 keys, so the static K
-// and V tiles (2 x 32 x 264 x 2 = 33,792 bytes) stay under the 48 KB
-// static limit; each thread then holds Q's fragments (64 registers) and an
-// O accumulator of 32 n-tiles (128 registers). f32 inputs (the test dtype,
-// not the path's) take a plain-FMA loop of the same structure
-// (flash_fwd_f32_kernel), whose key tile halves to 16 keys at D 256 for
-// the same limit.
+// different tiling. It served D 256 too (32-key tiles) until the Hopper
+// kernel, 5.8-7.8x faster there (PERF.md section 6), took that head dim.
+// f32 inputs (the test dtype, not the path's) take a plain-FMA loop of the
+// same structure (flash_fwd_f32_kernel), whose key tile halves to 16 keys
+// at D 256 to keep its static K and V tiles under the 48 KB static limit.
 //
 // Not yet: a persistent grid, a TMA store of o, 2-CTA clusters that
-// multicast each K / V tile to the two q heads that share it, and the
-// Hopper kernel at D 32 and D 256.
+// multicast each K / V tile to the two q heads that share it, FA3's 80-key
+// tiles at D 256 (~230 KB of shared memory), and the Hopper kernel at D 32.
 #include <cuda.h>            // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,12 +106,10 @@ namespace {
 constexpr float kNegInf = -2.3819763e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ---- bf16 mma.sync path, D 32 and D 256 ------------------------------------
+// ---- bf16 mma.sync path, D 32 ----------------------------------------------
 constexpr int kBQ = 64;            // q rows per block: 4 warps x 16
+constexpr int kBK = 64;            // keys per kv tile
 constexpr int kThreads = 128;
-
-// keys per kv tile: 64, or 32 at D 256 to keep K and V under 48 KB
-__host__ __device__ constexpr int keys_bf16(int d) { return d > 128 ? 32 : 64; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
@@ -146,7 +153,6 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  int sq, int skv, int group, Strides qs, Strides ks,
                  Strides vs, Strides os, float scale_log2, int causal,
                  int window) {
-  constexpr int kBK = keys_bf16(D);
   constexpr int LD = D + 8;          // padded smem row, elements
   constexpr int KT = D / 16;         // k-steps over D in Q K^T
   constexpr int NT = kBK / 8;        // n-tiles over the keys of a tile
@@ -376,27 +382,35 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 Hopper path, D 64 and D 128 ---------------------------------------
+// ---- bf16 Hopper path, D 64, 128 and 256 ------------------------------------
 namespace hopper {
 
 constexpr int kBM = 128;            // q rows per CTA: 2 consumer warpgroups
-constexpr int kBN = 128;            // keys per K / V tile
 constexpr int kStages = 2;          // K / V ring depth
 constexpr int kConsumers = 2;
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kBoxCols = 64;        // 128 bytes of bf16: the swizzle's width
-constexpr int kBoxBytes = 128 * kBoxCols * 2;   // one box of 128 rows
 constexpr uint32_t kAtom = 1024;    // 8 rows x 128 bytes, one swizzle atom
 
-// Shared memory of one CTA, in bytes from a 1024-byte aligned base.
+// keys per K / V tile: 128, or 64 at D 256, where Q (64 KiB) and two
+// stages of 128-key K and V tiles (4 x 64 KiB) would not fit in 227 KB
+__host__ __device__ constexpr int kv_rows(int d) { return d > 128 ? 64 : 128; }
+
+// Shared memory of one CTA, in bytes from a 1024-byte aligned base. A
+// tile is D / 64 boxes of (rows x 128 bytes): 128 rows for Q, kBN for K
+// and V.
 template <int D>
 struct Smem {
+  static constexpr int kBN = kv_rows(D);
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kTile = kBoxes * kBoxBytes;      // Q, K or V tile
+  static constexpr int kQBox = kBM * 128;               // bytes of a Q box
+  static constexpr int kKVBox = kBN * 128;              // of a K or V box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKVTile = kBoxes * kKVBox;
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;                      // + stage * kTile
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQTile;                     // + stage * kKVTile
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;
   // barriers: Q full; K full, V full, K empty and V empty per stage
   static constexpr int kNumBars = 1 + 4 * kStages;
   static constexpr int kBytes = kBar + 8 * kNumBars + 1024;   // + alignment
@@ -528,10 +542,36 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (m64n128, f32) += A (registers, bf16) * B (smem, MN-major: trans-b)
-__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
+// d (m64n64, f32) += A (smem, K-major) * B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[OFF .. OFF + 63] (m64n128, f32) += A (registers, bf16) * B (smem,
+// MN-major: trans-b)
+template <int N, int OFF>
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[N],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -545,22 +585,28 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -588,49 +634,65 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// S (64 x 128) = Q K^T for the 64 q rows at sQw and the 128 keys at sKs,
+// S (64 x kBN) = Q K^T for the 64 q rows at sQw and the kBN keys at sKs,
 // both K-major in 128-byte swizzled boxes: k-steps 32 bytes apart inside
-// a box's 128-byte rows, 16 KiB apart across the boxes of D 128.
+// a box's 128-byte rows; across the D / 64 boxes Q's are kQBox apart and
+// K's kKVBox (16 and 8 KiB at D 256, both 16 KiB at D 128).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t sQw,
-                                         uint32_t sKs) {
+__device__ __forceinline__ void issue_qk(float (&sc)[kv_rows(D) / 2],
+                                         uint32_t sQw, uint32_t sKs) {
+  using L = Smem<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_m64n128(sc, sw128_desc(sQw + off, 16, kAtom),
-                     sw128_desc(sKs + off, 16, kAtom), kk > 0);
-  }
-}
-
-// O (64 x D) += P V for the 128 keys at sVs, V MN-major (transposed B):
-// 16-key k-steps 2 KiB apart, the two 64-column boxes of D 128 16 KiB
-// apart (LBO), 8-key groups 1 KiB apart (SBO).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[8][4],
-                                         uint32_t sVs) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint64_t db = sw128_desc(sVs + j * 16 * 128, kBoxBytes, kAtom);
-    if constexpr (D == 128)
-      wgmma_rs_m64n128_tb(acc, pa[j], db);
+    const uint32_t in_box = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(sQw + (kk / 4) * L::kQBox + in_box, 16,
+                                   kAtom);
+    const uint64_t db = sw128_desc(sKs + (kk / 4) * L::kKVBox + in_box, 16,
+                                   kAtom);
+    if constexpr (L::kBN == 128)
+      wgmma_ss_m64n128(sc, da, db, kk > 0);
     else
-      wgmma_rs_m64n64_tb(acc, pa[j], db);
+      wgmma_ss_m64n64(sc, da, db, kk > 0);
   }
 }
 
-// One tile of the online softmax on S (the kv tile starting at key k0,
-// this thread's rows r0 and r1 = r0 + 8), in place: mask (kMask: the tile
+// O (64 x D) += P V for the kBN keys at sVs, V MN-major (transposed B):
+// 16-key k-steps 2 KiB apart, 8-key groups 1 KiB apart (SBO), 64-column
+// boxes kKVBox apart (LBO). D 256 takes two n128 products a k-step, on
+// the accumulator's halves: columns 128 h .. 128 h + 127 are boxes 2 h and
+// 2 h + 1.
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[D / 2], const uint32_t (&pa)[kv_rows(D) / 16][4],
+    uint32_t sVs) {
+  using L = Smem<D>;
+#pragma unroll
+  for (int j = 0; j < L::kBN / 16; ++j) {
+    const uint32_t at = sVs + j * 16 * 128;
+    if constexpr (D == 64) {
+      wgmma_rs_m64n64_tb(acc, pa[j], sw128_desc(at, L::kKVBox, kAtom));
+    } else {
+      wgmma_rs_m64n128_tb<D / 2, 0>(acc, pa[j],
+                                    sw128_desc(at, L::kKVBox, kAtom));
+      if constexpr (D == 256)
+        wgmma_rs_m64n128_tb<D / 2, 64>(
+            acc, pa[j], sw128_desc(at + 2 * L::kKVBox, L::kKVBox, kAtom));
+    }
+  }
+}
+
+// One tile of the online softmax on S (the kBN keys from k0, this
+// thread's rows r0 and r1 = r0 + 8), in place: mask (kMask: the tile
 // crosses a bound), take the row max of the raw scores, update the running
 // max m (in units of scale * log2(e), so scale_log2 must be >= 0) and
 // partial sum l, and leave P = exp2(S * scale_log2 - m) in sc as f32, one
 // FFMA and one MUFU a score. Returns in a0 and a1 the factors by which the
 // accumulator must be rescaled. The mask is a template argument so that
 // unmasked tiles carry no per-score branch.
-template <bool kMask>
+template <bool kMask, int kBN>
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[64], float& m0, float& m1, float& l0, float& l1, float& a0,
-    float& a1, int k0, int r0, int r1, int t, int skv, int causal,
+    float (&sc)[kBN / 2], float& m0, float& m1, float& l0, float& l1,
+    float& a0, float& a1, int k0, int r0, int r1, int t, int skv, int causal,
     int window, float scale_log2) {
   const float kInf = __int_as_float(0x7f800000);
   auto live = [&](int j, int e) {
@@ -641,7 +703,7 @@ __device__ __forceinline__ void softmax_tile(
   };
   float mx0 = -kInf, mx1 = -kInf;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kBN / 8; ++j) {
     float x[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -665,7 +727,7 @@ __device__ __forceinline__ void softmax_tile(
   m1 = mn1;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p =
@@ -681,27 +743,27 @@ __device__ __forceinline__ void softmax_tile(
 
 // softmax_tile for the kv tile kt, masked only if it crosses the causal
 // diagonal, the window's lower bound or Skv for the rows qw0..qw0 + 63.
+template <int kBN>
 __device__ __forceinline__ void softmax_kv_tile(
-    float (&sc)[64], float& m0, float& m1, float& l0, float& l1, float& a0,
-    float& a1, int kt, int qw0, int r0, int r1, int t, int skv, int causal,
-    int window, float scale_log2) {
+    float (&sc)[kBN / 2], float& m0, float& m1, float& l0, float& l1,
+    float& a0, float& a1, int kt, int qw0, int r0, int r1, int t, int skv,
+    int causal, int window, float scale_log2) {
   const int k0 = kt * kBN;
   if (k0 + kBN > skv || (causal && k0 + kBN - 1 > qw0) ||
       (window > 0 && qw0 + 63 - k0 >= window))
-    softmax_tile<true>(sc, m0, m1, l0, l1, a0, a1, k0, r0, r1, t, skv,
-                       causal, window, scale_log2);
+    softmax_tile<true, kBN>(sc, m0, m1, l0, l1, a0, a1, k0, r0, r1, t, skv,
+                            causal, window, scale_log2);
   else
-    softmax_tile<false>(sc, m0, m1, l0, l1, a0, a1, k0, r0, r1, t, skv,
-                        causal, window, scale_log2);
+    softmax_tile<false, kBN>(sc, m0, m1, l0, l1, a0, a1, k0, r0, r1, t, skv,
+                             causal, window, scale_log2);
 }
 
 // Rescale the accumulator and round P to bf16 A fragments (8-column
 // groups 2j and 2j + 1 of S are the A fragment of k-step j).
 template <int D>
-__device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
-                                                 const float (&sc)[64],
-                                                 uint32_t (&pa)[8][4],
-                                                 float a0, float a1) {
+__device__ __forceinline__ void rescale_and_pack(
+    float (&acc)[D / 2], const float (&sc)[kv_rows(D) / 2],
+    uint32_t (&pa)[kv_rows(D) / 16][4], float a0, float a1) {
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     acc[4 * i] *= a0;
@@ -710,7 +772,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
     acc[4 * i + 3] *= a1;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kv_rows(D) / 16; ++j) {
     pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
     pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
     pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
@@ -726,7 +788,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
                  uint16_t* __restrict__ o, Strides os, int sq, int skv,
                  int group, float scale_log2, int causal, int window) {
   using L = Smem<D>;
-  constexpr uint32_t kTileBytes = L::kTile;
+  constexpr int kBN = L::kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -764,24 +826,24 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
       prefetch_map(&qmap);
       prefetch_map(&kmap);
       prefetch_map(&vmap);
-      mbar_expect_tx(bar_q, kTileBytes);
+      mbar_expect_tx(bar_q, L::kQTile);
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
-        tma_load_4d(sQ + x * kBoxBytes, &qmap, bar_q, x * kBoxCols, h, q0, b);
+        tma_load_4d(sQ + x * L::kQBox, &qmap, bar_q, x * kBoxCols, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages, k0 = (t_hi - 1 - it) * kBN;
         const uint32_t parity = ((it / kStages) & 1) ^ 1;
         mbar_wait(bar_ke + 8 * s, parity);     // the K stage was read
-        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
+        mbar_expect_tx(bar_k + 8 * s, L::kKVTile);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(sK + s * kTileBytes + x * kBoxBytes, &kmap,
+          tma_load_4d(sK + s * L::kKVTile + x * L::kKVBox, &kmap,
                       bar_k + 8 * s, x * kBoxCols, hk, k0, b);
         mbar_wait(bar_ve + 8 * s, parity);     // the V stage was read
-        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
+        mbar_expect_tx(bar_v + 8 * s, L::kKVTile);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(sV + s * kTileBytes + x * kBoxBytes, &vmap,
+          tma_load_4d(sV + s * L::kKVTile + x * L::kKVBox, &vmap,
                       bar_v + 8 * s, x * kBoxCols, hk, k0, b);
       }
     }
@@ -799,32 +861,33 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m0 = -kInf, m1 = -kInf, l0 = 0.f, l1 = 0.f;
-    float sc[64];                  // S of one tile: 64 x 128, f32
+    float sc[kBN / 2];             // S of one tile: 64 x kBN, f32
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    uint32_t pa[8][4];             // P of one tile as bf16 A fragments
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    uint32_t pa[kBN / 16][4];      // P of one tile as bf16 A fragments
 
     mbar_wait(bar_q, 0);
     float a0, a1;
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % kStages;
       const uint32_t parity = (it / kStages) & 1;
+      const int kt = t_hi - 1 - it, k0 = kt * kBN;
       // S = Q K^T, then release K; the softmax leaves P in sc
       mbar_wait(bar_k + 8 * s, parity);
       wg_fence();
-      issue_qk<D>(sc, sQ + 64 * c * 128, sK + s * kTileBytes);
+      issue_qk<D>(sc, sQ + 64 * c * 128, sK + s * L::kKVTile);
       wg_commit();
       wg_wait_all();
       fence_regs(sc);
       mbar_arrive(bar_ke + 8 * s);
-      softmax_kv_tile(sc, m0, m1, l0, l1, a0, a1, t_hi - 1 - it, qw0, r0, r1,
-                      t, skv, causal, window, scale_log2);
+      softmax_kv_tile<kBN>(sc, m0, m1, l0, l1, a0, a1, kt, qw0, r0, r1, t,
+                           skv, causal, window, scale_log2);
       rescale_and_pack<D>(acc, sc, pa, a0, a1);
       // O += P V, then release V
       mbar_wait(bar_v + 8 * s, parity);
       fence_regs(acc);
       wg_fence();
-      issue_pv<D>(acc, pa, sV + s * kTileBytes);
+      issue_pv<D>(acc, pa, sV + s * L::kKVTile);
       wg_commit();
       wg_wait_all();
       fence_regs(acc);
@@ -841,7 +904,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
     const int row0 = 64 * c + 16 * warp + g;     // row in the tile; & 7 == g
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const int at = (j / 8) * kBoxBytes + (((j % 8) ^ g) << 4) + 4 * t;
+      const int at = (j / 8) * L::kQBox + (((j % 8) ^ g) << 4) + 4 * t;
       *reinterpret_cast<uint32_t*>(gq + at + row0 * 128) =
           pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
       *reinterpret_cast<uint32_t*>(gq + at + (row0 + 8) * 128) =
@@ -855,7 +918,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap qmap,
       const int id = i * 128 + tid;
       const int row = 64 * c + id / kChunks, cc = id % kChunks;
       const uint4 val = *reinterpret_cast<const uint4*>(
-          gq + (cc / 8) * kBoxBytes + row * 128 + (((cc % 8) ^ (row & 7)) << 4));
+          gq + (cc / 8) * L::kQBox + row * 128 + (((cc % 8) ^ (row & 7)) << 4));
       if (q0 + row < sq)
         *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + row) * os.s + cc * 8) =
             val;
@@ -909,7 +972,7 @@ int launch(const void* const* ptrs, void* o, const int64_t* geom, Strides os,
     const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
                                (cuuint32_t)g[9], (cuuint32_t)g[10]};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
-    const int rows = i == 0 ? kBM : kBN;
+    const int rows = i == 0 ? kBM : Smem<D>::kBN;
     if (g[0] != D || box[0] != kBoxCols || box[1] != 1 || box[2] != rows ||
         box[3] != 1)
       return (int)cudaErrorInvalidValue;
@@ -939,7 +1002,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            float scale, int causal, int window, int dtype,
            cudaStream_t stream) {
   if (dtype == 1) {
-    if constexpr (D != 32 && D != 256) {
+    if constexpr (D != 32) {
       return (int)cudaErrorInvalidValue;                        // Hopper path
     } else {
       dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
@@ -970,7 +1033,7 @@ bool shape_ok(int64_t B, int64_t sq, int64_t skv, int64_t H, int64_t K,
 }  // namespace
 
 // The mma.sync and plain-FMA kernels: f32 at D 32, 64, 128 and 256, bf16 at
-// D 32 and 256.
+// D 32.
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); unit stride on D. strides:
 // 12 int64 in elements, (batch, sequence, head) for q, k, v, o in turn.
 // dtype: 0 float32, 1 bfloat16. window <= 0 means none. Returns
@@ -984,7 +1047,7 @@ extern "C" int sfpl_flash_attention(const void* q, const void* k,
                                     void* stream) {
   if (B <= 0 || sq <= 0 || H <= 0) return 0;
   if (!shape_ok(B, sq, skv, H, K, window) || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && D != 32 && D != 256))
+      (dtype == 1 && D != 32))
     return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i)
@@ -1000,9 +1063,10 @@ extern "C" int sfpl_flash_attention(const void* q, const void* k,
   }
 }
 
-// The Hopper kernel: bf16 at D 64 and 128. geom: 33 int64, for q, k, v in
+// The Hopper kernel: bf16 at D 64, 128 and 256. geom: 33 int64, for q, k, v in
 // turn the tensor map's dims (D, heads, S, B), byte strides (heads, S, B)
-// and box (64, 1, rows, 1), as kernel.py::tma_geometry computes them.
+// and box (64, 1, rows, 1) (rows: 128 for q; kv_rows(D) for k and v), as
+// kernel.py::tma_geometry computes them.
 // o: (B, Sq, H, D) with element strides ostrides (batch, sequence, head),
 // unit stride on D, 16-byte aligned rows. window <= 0 means none. Returns
 // cudaGetLastError() after the launch, or 10000 + the CUresult when a
@@ -1028,20 +1092,27 @@ extern "C" int sfpl_flash_attention_tma(const void* q, const void* k,
   switch (D) {
     case 64: return hopper::launch<64>(ptrs, o, geom, os, B, sq, skv, H, group, scale, causal, w, s);
     case 128: return hopper::launch<128>(ptrs, o, geom, os, B, sq, skv, H, group, scale, causal, w, s);
+    case 256: return hopper::launch<256>(ptrs, o, geom, os, B, sq, skv, H, group, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The resources of the kernel that serves (D, dtype): registers a thread at
-// launch, static and dynamic shared memory a CTA, and CTAs an SM at the
+// launch, local memory a thread (the stack frame, where spills go: 0 means
+// none), static and dynamic shared memory a CTA, and CTAs an SM at the
 // launch's block size. Returns a cudaError_t.
 extern "C" int sfpl_flash_attention_resources(int64_t D, int dtype,
-                                              int* regs, int* smem_static,
+                                              int* regs, int* local_bytes,
+                                              int* smem_static,
                                               int* smem_dynamic,
                                               int* ctas_per_sm) {
   const void* fn = nullptr;
   int threads = 0, dyn = 0;
-  if (dtype == 1 && D == 128) {
+  if (dtype == 1 && D == 256) {
+    fn = reinterpret_cast<const void*>(hopper::flash_fwd_hopper<256>);
+    threads = hopper::kThreads;
+    dyn = hopper::Smem<256>::kBytes;
+  } else if (dtype == 1 && D == 128) {
     fn = reinterpret_cast<const void*>(hopper::flash_fwd_hopper<128>);
     threads = hopper::kThreads;
     dyn = hopper::Smem<128>::kBytes;
@@ -1049,9 +1120,8 @@ extern "C" int sfpl_flash_attention_resources(int64_t D, int dtype,
     fn = reinterpret_cast<const void*>(hopper::flash_fwd_hopper<64>);
     threads = hopper::kThreads;
     dyn = hopper::Smem<64>::kBytes;
-  } else if (dtype == 1 && (D == 32 || D == 256)) {
-    fn = D == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<32>)
-                 : reinterpret_cast<const void*>(flash_fwd_kernel<256>);
+  } else if (dtype == 1 && D == 32) {
+    fn = reinterpret_cast<const void*>(flash_fwd_kernel<32>);
     threads = kThreads;
   } else if (dtype == 0 && D == 256) {
     fn = reinterpret_cast<const void*>(flash_fwd_f32_kernel<256>);
@@ -1068,6 +1138,7 @@ extern "C" int sfpl_flash_attention_resources(int64_t D, int dtype,
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
   *smem_static = (int)attr.sharedSizeBytes;
   *smem_dynamic = dyn;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn,

@@ -6,10 +6,12 @@ shapes; the source file says how its design meets that. It reads q, k and
 v in the model's (B, S, heads, D) layout through their strides, so no
 transpose or padding copy is made around it.
 
-Each (dtype, D) has one kernel: bf16 at D 64 and 128 the Hopper kernel
-(TMA loads, ``wgmma``, warp specialisation), whose tensor maps
-:func:`tma_geometry` lays out; bf16 at D 32 and 256 the ``mma.sync``
-kernel; f32 the plain-FMA kernel.
+Each (dtype, D) has one kernel: bf16 at D 64, 128 and 256 the Hopper
+kernel (TMA loads, ``wgmma``, warp specialisation; 128-row q tiles over
+128-key K / V tiles, 64-key ones at D 256), whose tensor maps
+:func:`tma_geometry` lays out; bf16 at D 32 the ``mma.sync`` kernel; f32
+the plain-FMA kernel. A bf16 input that TMA cannot load at D 64, 128 or
+256 (a stride or base off 16 bytes) raises: no other kernel serves it.
 """
 from __future__ import annotations
 
@@ -25,9 +27,16 @@ from repro_torch.kernels import build
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-TMA_HEAD_DIMS = (64, 128)      # bf16 head dims of the Hopper kernel
+TMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the Hopper kernel
 TMA_BOX_BYTES = 128            # the 128-byte swizzle's widest box row
-Q_ROWS, KV_ROWS = 128, 128     # the Hopper kernel's q and K / V tiles
+Q_ROWS = 128                   # the Hopper kernel's q tile
+
+
+def kv_rows(d):
+    """Keys in the Hopper kernel's K / V tile at head dim ``d``: 128, or 64
+    at D 256, where Q and two ring stages of 128-key tiles would need 320
+    KiB of shared memory (csrc/flash_attention.cu::hopper::kv_rows)."""
+    return 64 if d > 128 else 128
 
 
 @functools.cache
@@ -50,19 +59,30 @@ def _tma_fn():
 
 
 def resources(d, dtype=torch.bfloat16):
-    """The card's report on the kernel that serves (D, dtype): registers a
-    thread at launch, static and dynamic shared memory a CTA, and CTAs an
-    SM (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMulti
-    processor``). Builds the library on first use."""
+    """The card's report on the kernel that serves (D, dtype), named by
+    :func:`kernel_for`: registers a thread at launch, local memory a
+    thread (the stack frame, where spills go: 0 means none), static and
+    dynamic shared memory a CTA, and CTAs an SM (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Builds the library
+    on first use."""
     fn = build.library("flash_attention").sfpl_flash_attention_resources
     fn.argtypes = [ctypes.c_int64, ctypes.c_int] + [
-        ctypes.POINTER(ctypes.c_int)] * 4
+        ctypes.POINTER(ctypes.c_int)] * 5
     fn.restype = ctypes.c_int
-    out = [ctypes.c_int(0) for _ in range(4)]
+    out = [ctypes.c_int(0) for _ in range(5)]
     build.check(fn(d, DTYPES[dtype], *map(ctypes.byref, out)),
                 "flash_attention resources")
-    return dict(zip(("registers", "smem_static", "smem_dynamic",
-                     "ctas_per_sm"), (x.value for x in out)))
+    return dict(kernel=kernel_for(d, dtype), **dict(zip(
+        ("registers", "local_bytes", "smem_static", "smem_dynamic",
+         "ctas_per_sm"), (x.value for x in out))))
+
+
+def kernel_for(d, dtype):
+    """The kernel that serves (D, dtype): ``hopper`` (bf16 at D 64, 128,
+    256), ``mma_sync`` (bf16 at D 32) or ``fma`` (f32)."""
+    if dtype == torch.bfloat16:
+        return "hopper" if d in TMA_HEAD_DIMS else "mma_sync"
+    return "fma"
 
 
 def tma_geometry(t, rows):
@@ -72,8 +92,9 @@ def tma_geometry(t, rows):
     Returns ``(dims, strides, box)`` in the driver's order, innermost
     first: ``dims`` (D, heads, S, B) in elements, ``strides`` the byte
     strides of heads, S and B, and ``box`` (64, 1, rows, 1). A box row is
-    64 bf16, the 128 bytes that the 128-byte swizzle allows, so a D 128
-    row is loaded as two boxes (the kernel's x = 0, 1 at column 64 x).
+    64 bf16, the 128 bytes that the 128-byte swizzle allows, so a row of D
+    is loaded as D / 64 boxes (the kernel's x = 0 .. D / 64 - 1 at column
+    64 x). ``rows`` is :data:`Q_ROWS` for q and :func:`kv_rows` for k, v.
     The stride of a size-1 dimension is never used and is given as the
     packed one (the byte extent of the dimensions inside it). Raises on what TMA cannot load: another dtype or
     D, a non-unit D stride, a base or a used stride that is not a
@@ -145,11 +166,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     w = 0 if window is None else int(window)
-    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+    if kernel_for(d, q.dtype) == "hopper":
         if scale < 0:       # its row max is taken on the raw scores
             q, scale = -q, -scale
         geom = (ctypes.c_int64 * 33)(*(x for t, rows in (
-            (q, Q_ROWS), (k, KV_ROWS), (v, KV_ROWS))
+            (q, Q_ROWS), (k, kv_rows(d)), (v, kv_rows(d)))
             for part in tma_geometry(t, rows) for x in part))
         ostrides = (ctypes.c_int64 * 3)(*o.stride()[:3])
         err = _tma_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

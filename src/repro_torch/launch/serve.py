@@ -4,8 +4,9 @@ teacher-forced through the decode step token by token, then greedy or
 temperature sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        [--arch qwen3-8b | --arch xlstm-1.3b] [--batch 4] [--prompt-len 16] \
-        [--gen 16] [--full] [--device cpu]
+        [--arch qwen3-8b | gemma-7b | minitron-8b | phi3-medium-14b |
+         xlstm-1.3b] [--batch 4] [--prompt-len 16] [--gen 16] [--full] \
+        [--device cpu]
 
 The smoke config by default, the architecture's full width with
 ``--full``. Parameters are drawn from ``--seed`` on the device itself (no

@@ -121,6 +121,35 @@ def test_port_transformer_init_has_jax_tree_structure(lm_params):
         assert u.shape == v.shape and u.dtype == v.dtype, path
 
 
+@pytest.mark.parametrize("arch,vocab", [("gemma-7b", 256000),
+                                        ("minitron-8b", 512),
+                                        ("phi3-medium-14b", 512)])
+def test_dense_arch_tree_round_trips_with_jax_structure(arch, vocab):
+    """The other dense archs' smoke trees (gemma-7b's at its full 256,000
+    vocab: the tied table is the only vocab-sized leaf, no ``unembed``):
+    the round trip is bitwise, and the port's own init has the JAX tree's
+    keys, shapes and dtypes."""
+    jspec = j_get_arch(arch)
+    cfg = dataclasses.replace(jspec.make_smoke_config(), vocab_size=vocab)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jspec.model.init(jax.random.PRNGKey(4), cfg))
+    assert ("unembed" in tree) == (not cfg.tie_embeddings)
+    assert tree["embed"]["table"].shape == (vocab, cfg.d_model)
+    a = _leaves_with_paths(tree)
+    b = _leaves_with_paths(to_numpy(from_jax_numpy(tree)))
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, u), (_, v) in zip(a, b):
+        assert u.dtype == v.dtype and u.shape == v.shape, path
+        assert u.tobytes() == v.tobytes(), path
+    tcfg = TransformerConfig(**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(cfg)})
+    ours = _leaves_with_paths(to_numpy(get_arch(arch).model.init(
+        torch.Generator().manual_seed(0), tcfg)))
+    assert [p for p, _ in ours] == [p for p, _ in a]
+    for (path, u), (_, v) in zip(ours, a):
+        assert u.shape == v.shape and u.dtype == v.dtype, path
+
+
 def test_xlstm_tree_round_trips_bitwise_with_jax_shapes():
     """xlstm-1.3b's smoke tree: the block-diagonal ``wq`` / ``wk`` / ``wv``
     leaves are 4-dim ``w`` leaves but no conv kernels; every leaf keeps its

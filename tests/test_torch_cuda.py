@@ -13,8 +13,11 @@ width (V 50,257) and on the rows that straddle element 2**31 of a
 131,073 x 16,384 bf16 logits tensor. The sharded epoch at
 world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
 rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
-and 2e-2 in bf16 (tests/test_kernels.py's bounds), and a 2-layer f32
-prefill through K7 within 2e-3 of the plain attention path. The sLSTM scan
+and 2e-2 in bf16 (tests/test_kernels.py's bounds), bf16 D 256 served by
+the spill-free Hopper kernel and equal to itself under CUDA-graph replay,
+a 2-layer f32 prefill through K7 within 2e-3 of the plain attention path,
+and a 2-layer bf16 gemma-7b prefill through K7 at D 256 within 2e-2 of max
+|logit| of the plain path. The sLSTM scan
 (K8) 3e-4 of its plain version (tests/test_kernels.py's kernel-to-ref
 bound) on the fuzz grid, strided inputs (views of one fused projection)
 and its launch plan's edges (B 1 and 5, S 1, a ragged last slice, two
@@ -33,6 +36,7 @@ from repro_torch import kernels as K
 from repro_torch.kernels.bn_act import ops as bn_ops, ref as bn_ref
 from repro_torch.kernels.collector_permute import ops as perm_ops
 from repro_torch.kernels.collector_permute import ref as perm_ref
+from repro_torch.kernels.flash_attention import kernel as flash_k
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -55,6 +59,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _kernels_run(fn):
+    """Names of the K7 kernels that ``fn()`` ran on the card (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.key for e in prof.key_averages() if "flash_fwd" in e.key]
 
 
 def _within(got, want, rel):
@@ -261,18 +274,26 @@ def test_rmsnorm_kernel(dev, shape, offset, dtype):
     (1, 127, (8, 2), 128, True, None), (2, 128, (8, 2), 128, False, None),
     (1, 129, (8, 1), 128, True, None), (1, 255, (4, 4), 128, False, 64),
     (1, 400, (8, 2), 128, True, 200),
-    # head_dim 256 (the mma.sync kernel's 32-key tiles): gemma-7b's MHA,
-    # recurrentgemma-9b's MQA and its 2048 window across many tiles
+    # head_dim 256 (the Hopper kernel's 64-key K / V tiles): gemma-7b's
+    # MHA, recurrentgemma-9b's MQA and its 2048 window across many tiles
     (1, 300, (4, 4), 256, True, None), (2, 100, (4, 1), 256, True, None),
-    (1, 129, (2, 2), 256, False, None), (1, 2500, (4, 1), 256, True, 2048)])
+    (1, 129, (2, 2), 256, False, None), (1, 2500, (4, 1), 256, True, 2048),
+    # ragged S around the 64-key tiles and the 128-row q tiles at D 256
+    (1, 63, (4, 4), 256, True, None), (2, 64, (4, 1), 256, False, None),
+    (1, 65, (4, 4), 256, True, 40), (2, 127, (4, 1), 256, True, None),
+    (1, 128, (4, 4), 256, False, 40), (1, 129, (4, 1), 256, True, 40)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
     h, k = hk
     q, kk, v = (torch.randn(b, s, n, d, device=dev).to(dtype)
                 for n in (h, k, k))
     before = K.LAUNCHES["flash_attention"]
-    out = flash_ops.flash_attention(q, kk, v, causal=causal, window=window)
+    out, names = _kernels_run(lambda: flash_ops.flash_attention(
+        q, kk, v, causal=causal, window=window))
     assert K.LAUNCHES["flash_attention"] == before + 1
+    if dtype == torch.bfloat16 and d >= 64:      # D 64, 128, 256
+        assert names == [n for n in names if f"flash_fwd_hopper<{d}>" in n]
+        assert names and flash_k.kernel_for(d, dtype) == "hopper"
     want = flash_ref.attention_ref(q, kk, v, causal=causal, window=window)
     tol = 2e-3 if dtype == torch.float32 else 2e-2
     assert out.dtype == dtype and out.shape == q.shape
@@ -282,13 +303,15 @@ def test_flash_attention_kernel(dev, b, s, hk, d, causal, window, dtype):
 @pytest.mark.parametrize("scale", [-0.2, 0.0])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_attention_any_scale(dev, scale, d):
-    """The Hopper kernel (D 64, 128) takes its row max on the raw scores,
+    """The Hopper kernel (D 64, 128, 256) takes its row max on the raw scores,
     so the wrapper moves a negative scale into q; scale 0 is uniform
     attention over the live keys."""
     q, k, v = (torch.randn(2, 200, n, d, device=dev).to(torch.bfloat16)
                for n in (4, 2, 2))
-    out = flash_ops.flash_attention(q, k, v, causal=True, window=64,
-                                    scale=scale)
+    out, names = _kernels_run(lambda: flash_ops.flash_attention(
+        q, k, v, causal=True, window=64, scale=scale))
+    kind = "flash_fwd_hopper" if d >= 64 else "flash_fwd_kernel"
+    assert names and all(kind in n for n in names), names
     want = flash_ref.attention_ref(q, k, v, causal=True, window=64,
                                    scale=scale)
     assert torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2)
@@ -300,9 +323,81 @@ def test_flash_attention_reads_strided_views(dev, d):
     qkv: the kernel reads them through their strides."""
     qkv = torch.randn(2, 77, 4 + 2 + 2, d, device=dev).to(torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    out = flash_ops.flash_attention(q, k, v, causal=True)
+    out, names = _kernels_run(lambda: flash_ops.flash_attention(
+        q, k, v, causal=True))
+    assert names and all("flash_fwd_hopper" in n for n in names), names
     want = flash_ref.attention_ref(q, k, v, causal=True)
     assert torch.allclose(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_d256_is_served_by_the_hopper_kernel(dev):
+    """bf16 at D 256 runs flash_fwd_hopper<256> (the profile names it):
+    spill-free (no local memory), its 197,704 bytes of dynamic shared
+    memory, one CTA an SM; the library's mma.sync entry refuses bf16 D 256
+    (that kernel exists only in the measurement build)."""
+    res = flash_k.resources(256)
+    assert res["kernel"] == "hopper" and res["local_bytes"] == 0
+    assert res["smem_dynamic"] == 197704 and res["ctas_per_sm"] == 1
+    for d in (64, 128):
+        assert flash_k.resources(d)["local_bytes"] == 0
+    q, k, v = (torch.randn(1, 200, n, 256, device=dev).to(torch.bfloat16)
+               for n in (4, 4, 4))
+    _, names = _kernels_run(lambda: flash_ops.flash_attention(
+        q, k, v, causal=True))
+    assert names and all("flash_fwd_hopper<256>" in n for n in names), names
+    o = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, o)
+                                      for st in t.stride()[:3]))
+    err = flash_k._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), 1, 200, 200, 4, 4, 256,
+                        ctypes.addressof(strides), 0.0625, 1, 0, 1,
+                        torch.cuda.current_stream().cuda_stream)
+    assert err == 1                     # cudaErrorInvalidValue
+
+
+def test_flash_attention_d256_in_a_cuda_graph(dev):
+    """The D 256 Hopper kernel captured in a CUDA graph and replayed gives
+    the eager call's output bit for bit (its tensor maps are encoded at
+    capture and stay valid for the same tensors)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(2, 333, n, 256, device=dev, generator=g)
+               .to(torch.bfloat16) for n in (8, 2, 2))
+    want = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_gemma_prefill_through_the_kernel_matches_plain_bf16(dev):
+    """gemma-7b's layers at full width (d 3072, 16 heads of 256, GeGLU
+    24,576), 2 of them and a 1,000-token vocab, bf16 compute: the prefill's
+    logits through K7 at D 256 against the plain attention path, within
+    2e-2 of max |logit| (test_torch_lm.py's bf16 bound)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    spec = get_arch("gemma-7b")
+    cfg = spec.make_config(num_layers=2, vocab_size=1000)
+    params = spec.model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), device=dev)
+    K.reset_launches()
+    with torch.inference_mode():
+        got, _ = spec.model.forward(params, {"tokens": toks},
+                                    dataclasses.replace(
+                                        cfg, attention_impl="kernel"))
+        assert K.LAUNCHES["flash_attention"] == cfg.num_layers
+        want, _ = spec.model.forward(params, {"tokens": toks}, cfg)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 def test_prefill_through_the_kernel_matches_plain(dev):

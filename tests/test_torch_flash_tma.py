@@ -6,13 +6,17 @@ hold that geometry against the tensors' own layout: every element a box
 would load is the tensor's element at the same index, for contiguous
 tensors, the packed-qkv views of
 ``tests/test_torch_cuda.py::test_flash_attention_reads_strided_views``
-and size-1 dimensions with odd strides, and what TMA cannot load is
-refused. A plain emulation of the kernel's tile walk (128-row q tiles in
-two 64-row halves, 128-key tiles from the diagonal down, masks only on
-tiles that cross a bound, P rounded to bf16) is held against
+and size-1 dimensions with odd strides, at D 64, 128 and 256 (whose
+K / V boxes are 64 rows, Q's 128), and what TMA cannot load is refused. A
+plain emulation of the kernel's tile walk (128-row q tiles in two 64-row
+halves, K / V tiles of ``kv_rows(D)`` keys from the diagonal down, masks
+only on tiles that cross a bound, P rounded to bf16) is held against
 ``ref.attention_ref`` within 2e-2 (tests/test_kernels.py's bf16 bound) at
-the tile edges, and the tiles it skips or leaves unmasked are checked to
-need no mask.
+the tile edges, and the
+tiles it skips or leaves unmasked are checked to need no mask. At D 256
+two 64-key tiles cross the causal diagonal of a q tile (the upper one
+wholly masked for the first 64-row half), and a window's edge can cross
+a third.
 """
 import math
 
@@ -53,7 +57,7 @@ def _assert_geometry_matches(t, rows):
     b, s, n, d = t.shape
     assert dims == (d, n, s, b)
     assert box == (64, 1, rows, 1) and box[0] * t.element_size() == 128
-    assert d // box[0] == d // 64 and d % box[0] == 0   # two boxes at D 128
+    assert d % box[0] == 0          # D / 64 boxes: two at D 128, four at 256
     assert all(st % 16 == 0 and 0 < st < 2 ** 40 for st in strides)
     for dim, st in zip((2, 1, 0), strides):
         if t.shape[dim] > 1:
@@ -79,7 +83,7 @@ def _numbered(shape):
 
 @pytest.mark.parametrize("shape", [(1, 5, 1, 64), (2, 130, 4, 128),
                                    (3, 17, 2, 64), (1, 129, 8, 128)])
-@pytest.mark.parametrize("rows", [flash_k.Q_ROWS, flash_k.KV_ROWS])
+@pytest.mark.parametrize("rows", [flash_k.Q_ROWS, flash_k.kv_rows(128)])
 def test_tma_geometry_contiguous(shape, rows):
     t = _numbered(shape)
     _assert_geometry_matches(t, rows)
@@ -88,16 +92,30 @@ def test_tma_geometry_contiguous(shape, rows):
                                                 2 * s * n * d)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", [(1, 65, 2, 256), (2, 130, 4, 256),
+                                   (1, 1, 1, 256)])
+@pytest.mark.parametrize("rows", [flash_k.Q_ROWS, flash_k.kv_rows(256)])
+def test_tma_geometry_d256(shape, rows):
+    """D 256: a row is four 64-column boxes; q loads in 128-row boxes, k and
+    v in 64-row ones."""
+    assert flash_k.kv_rows(256) == 64
+    t = _numbered(shape)
+    _assert_geometry_matches(t, rows)
+    assert flash_k.tma_geometry(t, rows)[2] == (64, 1, rows, 1)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tma_geometry_packed_qkv_views(d):
     """q, k, v as views of one fused projection, as
-    test_flash_attention_reads_strided_views builds them."""
+    test_flash_attention_reads_strided_views builds them, each in the
+    kernel's own rows (q 128, k and v ``kv_rows(d)``)."""
     qkv = _numbered((2, 77, 4 + 2 + 2, d))
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    for t in (q, k, v):
-        _assert_geometry_matches(t, 128)
-        assert flash_k.tma_geometry(t, 128)[1] == (2 * d, 2 * 8 * d,
-                                                   2 * 77 * 8 * d)
+    for t, rows in ((q, flash_k.Q_ROWS), (k, flash_k.kv_rows(d)),
+                    (v, flash_k.kv_rows(d))):
+        _assert_geometry_matches(t, rows)
+        assert flash_k.tma_geometry(t, rows)[1] == (2 * d, 2 * 8 * d,
+                                                    2 * 77 * 8 * d)
 
 
 def test_tma_geometry_size_one_dims_take_a_packed_stride():
@@ -153,7 +171,7 @@ def _emulate_hopper(q, k, v, causal, window):
     (B, S, heads, D); rows and keys past S read as zeros (TMA's fill)."""
     b, sq, h, d = q.shape
     skv, g = k.shape[1], h // k.shape[2]
-    bm = bn = 128
+    bm, bn = flash_k.Q_ROWS, flash_k.kv_rows(d)
     sl2 = math.log2(math.e) / math.sqrt(d)
     nq, nk = -(-sq // bm), -(-skv // bn)
     qp = torch.zeros(b, nq * bm, h, d, dtype=BF16)
@@ -172,6 +190,8 @@ def _emulate_hopper(q, k, v, causal, window):
             assert not _mask(rows, keys, skv, causal, window).any()
         for c in range(2):
             qw0 = q0 + 64 * c
+            if qw0 >= sq:              # no row of this half is stored
+                continue
             iq = torch.arange(qw0, qw0 + 64)
             qs = qp[:, qw0:qw0 + 64].float()
             m = torch.full((b, h, 64), -math.inf)
@@ -180,11 +200,11 @@ def _emulate_hopper(q, k, v, causal, window):
             for kt in range(hi - 1, lo - 1, -1):     # diagonal first
                 k0 = kt * bn
                 ik = torch.arange(k0, k0 + bn)
+                ok = _mask(iq, ik, skv, causal, window)
                 s = torch.einsum("bqhd,bkhd->bhqk", qs,
                                  kp[:, k0:k0 + bn].float())
                 edge = (k0 + bn > skv or (causal and k0 + bn - 1 > qw0)
                         or bool(window) and qw0 + 63 - k0 >= window)
-                ok = _mask(iq, ik, skv, causal, window)
                 if not edge:                     # unmasked: needs no mask
                     assert ok.all()
                 # the row max of the raw scores, then P = exp2(S sl2 - m)
@@ -211,6 +231,25 @@ def test_hopper_tile_walk_matches_plain(s, causal, window, hk, d):
     h, kh = hk
     gen = torch.Generator().manual_seed(s * 7 + d + (window or 0))
     q, k, v = (torch.randn(1, s, n, d, generator=gen).to(BF16)
+               for n in (h, kh, kh))
+    got = _emulate_hopper(q, k, v, causal, window)
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (True, 100),
+                                           (False, 200)])
+@pytest.mark.parametrize("hk", [(4, 4), (4, 1)])
+def test_hopper_d256_tile_walk_matches_plain(s, causal, window, hk):
+    """The D 256 walk: 128-row q tiles over 64-key K / V tiles, so two
+    tiles cross each q tile's causal diagonal (the upper one wholly masked
+    for the first 64-row half) and a window's edge can fall in a third; S around the 64- and 128-row edges, MHA (gemma-7b) and MQA
+    (recurrentgemma-9b)."""
+    h, kh = hk
+    gen = torch.Generator().manual_seed(s * 11 + kh + (window or 0))
+    q, k, v = (torch.randn(1, s, n, 256, generator=gen).to(BF16)
                for n in (h, kh, kh))
     got = _emulate_hopper(q, k, v, causal, window)
     want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)

@@ -192,12 +192,19 @@ def test_attention_decode_matches_jax(case):
 
 
 # --------------------------------------------------------------------------
-# qwen3-8b smoke model
+# the dense transformers' smoke models
 
-@pytest.fixture(scope="module")
-def smoke():
-    """qwen3-8b's smoke config (2 layers, d 256), params drawn by JAX."""
-    jspec = j_get_arch("qwen3-8b")
+# the other dense archs of the JAX package that the port registers, each
+# held by the same prefill, decode and scheduler checks as qwen3-8b:
+# gemma-7b (GeGLU, tied embeddings, sqrt(d) embedding scale, 1 + scale
+# norms), minitron-8b (ungated relu2), phi3-medium-14b (SwiGLU, GQA)
+DENSE_ARCHS = ["gemma-7b", "minitron-8b", "phi3-medium-14b"]
+IMPL_PAIRS = [("xla", "xla"), ("xla", "kernel"), ("pallas_interpret", "kernel")]
+
+
+def _smoke(arch):
+    """``arch``'s smoke config (2 layers, d 256), params drawn by JAX."""
+    jspec = j_get_arch(arch)
     cfg = jspec.make_smoke_config(compute_dtype="float32")
     params = _jnp_tree(jspec.model.init(jax.random.PRNGKey(0), cfg))
     toks = np.random.default_rng(11).integers(0, cfg.vocab_size,
@@ -205,9 +212,19 @@ def smoke():
     return jspec, params, toks
 
 
+@pytest.fixture(scope="module")
+def smoke():
+    return _smoke("qwen3-8b")
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_smoke(request):
+    return _smoke(request.param)
+
+
 def _cfgs(jspec, **kw):
     jcfg = jspec.make_smoke_config(**kw)
-    tspec = get_arch("qwen3-8b")
+    tspec = get_arch(jspec.arch_id)
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg)}
     if fields["attention_impl"] == "pallas_interpret":
@@ -215,9 +232,7 @@ def _cfgs(jspec, **kw):
     return jcfg, tspec, TransformerConfig(**fields)
 
 
-@pytest.mark.parametrize("jax_impl,port_impl", [
-    ("xla", "xla"), ("xla", "kernel"), ("pallas_interpret", "kernel")])
-def test_prefill_logits_match_jax_f32(smoke, jax_impl, port_impl):
+def _check_prefill_f32(smoke, jax_impl, port_impl):
     jspec, params, toks = smoke
     jcfg, tspec, tcfg = _cfgs(jspec, compute_dtype="float32",
                               attention_impl=jax_impl)
@@ -228,6 +243,17 @@ def test_prefill_logits_match_jax_f32(smoke, jax_impl, port_impl):
                                          {"tokens": torch.from_numpy(toks)})
     assert tuple(got.shape) == want.shape == (2, 1, jcfg.vocab_size)
     np.testing.assert_allclose(_np(got), np.asarray(want), **LOGITS_F32)
+
+
+@pytest.mark.parametrize("jax_impl,port_impl", IMPL_PAIRS)
+def test_prefill_logits_match_jax_f32(smoke, jax_impl, port_impl):
+    _check_prefill_f32(smoke, jax_impl, port_impl)
+
+
+@pytest.mark.parametrize("jax_impl,port_impl", IMPL_PAIRS)
+def test_dense_arch_prefill_logits_match_jax_f32(dense_smoke, jax_impl,
+                                                 port_impl):
+    _check_prefill_f32(dense_smoke, jax_impl, port_impl)
 
 
 def test_prefill_logits_match_jax_bf16(smoke):
@@ -264,7 +290,7 @@ def test_prefill_logits_match_jax_bf16(smoke):
         assert gap <= own, (jax_impl, gap, own)
 
 
-def test_decode_logits_match_jax_f32(smoke):
+def _check_decode_f32(smoke):
     jspec, params, toks = smoke
     jcfg, tspec, tcfg = _cfgs(jspec, compute_dtype="float32")
     jstate = jspec.model.init_decode_state(jcfg, 2, 16, dtype=jnp.float32)
@@ -280,7 +306,7 @@ def test_decode_logits_match_jax_f32(smoke):
         np.testing.assert_allclose(_np(got), np.asarray(want), **LOGITS_F32)
 
 
-def test_continuous_batcher_greedy_matches_jax(smoke):
+def _check_batcher_greedy(smoke):
     """Five requests of mixed prompt lengths through two slots (slot
     recycling): the same greedy tokens as the JAX package's scheduler."""
     jspec, params, _ = smoke
@@ -299,6 +325,47 @@ def test_continuous_batcher_greedy_matches_jax(smoke):
     assert tticks == jticks and len(tdone) == len(jdone) == 5
     assert [r.prompt for r in tdone] == [r.prompt for r in jdone]
     assert [r.output for r in tdone] == [r.output for r in jdone]
+
+
+def test_decode_logits_match_jax_f32(smoke):
+    _check_decode_f32(smoke)
+
+
+def test_dense_arch_decode_logits_match_jax_f32(dense_smoke):
+    _check_decode_f32(dense_smoke)
+
+
+def test_continuous_batcher_greedy_matches_jax(smoke):
+    _check_batcher_greedy(smoke)
+
+
+def test_dense_arch_continuous_batcher_greedy_matches_jax(dense_smoke):
+    _check_batcher_greedy(dense_smoke)
+
+
+def test_embed_scale_is_jax_bf16_rounded_sqrt_d():
+    """gemma-7b's embedding scale in bf16 compute: the port multiplies by
+    the same bf16-rounded sqrt(3072) as the JAX package
+    (models/transformer.py::embed_inputs), so the scaled embeddings are
+    equal bit for bit."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as T
+    jcfg = j_get_arch("gemma-7b").make_config(vocab_size=16)
+    tcfg = get_arch("gemma-7b").make_config(vocab_size=16)
+    assert tcfg.embed_scale and tcfg.cdtype() == torch.bfloat16
+    rng = np.random.default_rng(13)
+    table = {"table": _normal(rng, 16, 3072)}
+    toks = rng.integers(0, 16, (2, 5)).astype(np.int32)
+    want = JT.embed_inputs({"embed": table}, {"tokens": jnp.asarray(toks)},
+                           jcfg)
+    got = T.embed_inputs({"embed": from_jax_numpy(table)},
+                         {"tokens": torch.from_numpy(toks)}, tcfg)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert np.array_equal(_np(got), np.asarray(want, np.float32))
+    # the factor is sqrt(3072) = 55.43 rounded to bf16 (55.5), not the f32
+    ratio = _np(got) / np.asarray(
+        jnp.asarray(table["table"][toks], jnp.bfloat16), np.float32)
+    assert np.allclose(ratio[np.isfinite(ratio)], 55.5, rtol=1e-2)
 
 
 @pytest.mark.parametrize("temps", [(2.0,), (0.0, 0.5, 2.0)])
