@@ -75,6 +75,7 @@ from repro_torch.kernels.slstm_scan import kernel as slstm_k  # noqa: E402
 from repro_torch.kernels.slstm_scan import ref as slstm_ref   # noqa: E402
 from repro_torch.kernels.softmax_xent import kernel as xent_k  # noqa: E402
 from repro_torch.kernels.softmax_xent import ref as xent_ref   # noqa: E402
+from repro_torch.kernels.softmax_xent import probe as xent_probe  # noqa
 from repro_torch.tree import tree_leaves                      # noqa: E402
 
 DEV = torch.device("cuda")
@@ -221,22 +222,23 @@ def kernel_resources():
                                  f"Hopper kernel: {res}")
     print(f"  K7 f32 D 256: "
           f"{json.dumps(flash_k.resources(256, torch.float32))}")
-    _, fwd, bwd, _ = xent_k._kernels()
+    fwd, bwd, _ = xent_k._kernels()
     x = torch.randn(POOL, CLASSES, device=DEV).to(torch.bfloat16)
     lab = torch.zeros(POOL, dtype=torch.int64, device=DEV)
     nll, lse = (torch.empty(POOL, device=DEV) for _ in range(2))
-    br, bv, warps = xent_k._fwd_blocks(CLASSES)
-    res = triton_resources(fwd, (math.ceil(POOL / br),), x, lab, nll, lse,
-                           POOL, CLASSES, x.stride(0), BLOCK_R=br,
-                           BLOCK_V=bv, num_warps=warps)
-    print(f"  K3f {POOL} x {CLASSES} bf16, {math.ceil(POOL / br)} programs "
-          f"of {br} rows: {json.dumps(res)}")
-    br, bv = xent_k._blocks(CLASSES)
-    res = triton_resources(bwd, (math.ceil(POOL / br),), x, lab, lse, nll,
+    geo = xent_k.geometry(CLASSES)
+    programs = geo.programs(POOL)
+    res = triton_resources(fwd, (programs,), x, lab, nll, lse, POOL,
+                           CLASSES, x.stride(0), BLOCK_R=geo.rows,
+                           BLOCK_V=geo.block_v, num_warps=geo.warps)
+    print(f"  K3f {POOL} x {CLASSES} bf16, {programs} programs of "
+          f"{geo.rows} rows: {json.dumps(res)}")
+    res = triton_resources(bwd, (programs, geo.col_blocks), x, lab, lse, nll,
                            torch.empty_like(x), POOL, CLASSES, x.stride(0),
-                           x.stride(0), BLOCK_R=br, BLOCK_V=bv, num_warps=4)
-    print(f"  K3b {POOL} x {CLASSES} bf16, {math.ceil(POOL / br)} programs "
-          f"of {br} rows: {json.dumps(res)}")
+                           x.stride(0), BLOCK_R=geo.rows, BLOCK_V=geo.block_v,
+                           num_warps=geo.warps)
+    print(f"  K3b {POOL} x {CLASSES} bf16, {programs} programs of "
+          f"{geo.rows} rows: {json.dumps(res)}")
     pl = slstm_k.card_plan(LM_BATCH, 4, 512)
     res = slstm_k.resources(pl.smem)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -888,6 +890,10 @@ def kernels_vs_plain():
                 main["quant_bucket_permute"] = RESULTS[-2]
                 main["dequant_unbucket_permute"] = RESULTS[-1]
             check_quant(37, 105, dtype, wire, (4, 10), 1)
+    # K3b beside the design it replaced (and, past MAX_V classes, one row
+    # a program looping over its column blocks), in turns on the same inputs
+    for row in xent_probe.compare():
+        print("K3b designs " + json.dumps(row), flush=True)
     main.update(kernels_lm())
     main.update(kernels_xlstm())
     return main

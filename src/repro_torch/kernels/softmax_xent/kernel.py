@@ -4,40 +4,57 @@ Replace ``src/repro/kernels/softmax_xent/kernel.py::xent_fwd_2d`` and
 ``::xent_bwd_2d`` (Pallas, TPU), which pad the class axis to 128 lanes and
 sweep (256, Vp) row blocks.
 
-Bound on Hopper: at the main path's shape (800 rows x 100 classes) both
-sweeps move well under a megabyte, so launch latency and the length of
-the dependent chain in one program, not bandwidth or arithmetic, bound
-them; the byte bound is one read of the logits and one write of the
-per-row results (forward) or of ``dx`` (backward).
+Bound on Hopper: at the main path's shape (800 rows x 100 classes, bf16)
+the forward reads 160 KB and the backward reads and writes 320 KB, 0.05
+and 0.1 us at the HBM rate. What bounds both is the launch and the
+dependent chain inside one program: load the row, reduce (forward) or
+rebuild the softmax (backward), store. So the design keeps that chain
+short and spreads the rows over more programs than the card has SMs.
 
-Design: the whole class axis of each row in registers (``BLOCK_V`` the
-next power of two, columns past ``V`` masked to ``-inf`` on load, so V =
-100 needs no padded copy). The forward spreads the rows over many small
-programs: 4 rows of up to 128 classes in one warp (200 programs at 800
-rows, 16 values a thread), one row in 1-8 warps for wider rows. Each
-program reduces the max and the sum of ``exp2((x - m) * log2 e)`` in f32,
-takes ``lse = m + log2(sum) * ln 2``, and fetches the label logit with one
-scalar load, not a second masked reduction; it writes ``nll`` and
-``lse``. The backward keeps its 64-row blocks: it rebuilds the softmax
-from the saved ``lse`` (no second reduction), subtracts the one-hot,
-scales by the per-row ``g`` and stores in the logits' dtype.
+Design: one geometry for both directions (``geometry``), the whole class
+axis of each row in registers (``BLOCK_V`` the next power of two, columns
+past ``V`` masked on load, so V = 100 needs no padded copy): 4 rows of up
+to 128 classes in one warp (200 programs at 800 rows, 16 values a
+thread), one row in 1-8 warps for wider rows. Each row's base offset is
+formed once in int64 and the per-element column offsets stay 32-bit, so R
+x V past 2**31 elements addresses right without 64-bit arithmetic per
+element. The forward reduces the max and the sum of ``exp2((x - m) *
+log2 e)`` in f32, takes ``lse = m + log2(sum) * ln 2``, and fetches the
+label logit with one scalar load, not a second masked reduction; it
+writes ``nll`` and ``lse``. The backward loads the three row scalars
+(``lse``, ``g``, the label) once a row, rebuilds ``p = exp2((x - lse) *
+log2 e)`` (no second reduction), subtracts one where the column is the
+label, scales by ``g`` and stores in the logits' dtype.
+
+The backward it replaced held up to 4,096 values in blocks of 32 or 64
+rows of 4 warps, with 64-bit offsets formed per element: 25 programs of
+32 values a thread and 168 registers at 800 x 100, 2.35 us on an H100
+80GB HBM3 at 700 W against the forward's 1.89
+(``python -m repro_torch.kernels.softmax_xent.probe`` times both on the
+same inputs).
 
 Rows wider than ``MAX_V`` classes (an LM vocabulary, where the Pallas
-kernel pads V and takes any width) do not fit one block: the forward
+kernel pads V and takes any width) do not fit one program: the forward
 takes one row a program and loops over blocks of ``WIDE_V`` columns with
 a running max and sum (``xent_fwd_wide_kernel``); the backward spreads
-the columns over a second grid axis, each program rebuilding its block
-from the saved ``lse``. Row offsets are formed in int64 in both
-directions, so R x V past 2**31 elements addresses right.
+blocks of ``WIDE_BWD_V`` columns over a second grid axis, each program
+rebuilding its block from the saved ``lse``. The forward's loop carries
+its sums from block to block and wants long blocks; the backward's
+blocks are independent and want many programs: at 64 x 50,257 bf16 on an
+H100 80GB HBM3 at 700 W, 1,024-column blocks in 8 warps took 5.5 us,
+4,096-column blocks 6.4, and one row a program looping over its blocks
+9.9 (``probe.py``).
 
-Both stay in Triton: they are row reductions, which Triton expresses in
-a few lines with the same warp-shuffle reductions a CUDA C++ version
-would write by hand. Triton is imported and the kernels are compiled
-inside the launching functions only.
+Both stay in Triton: they are row reductions and a fused elementwise
+pass, which Triton expresses in a few lines with the same coalesced loads
+and warp-shuffle reductions a CUDA C++ version would write by hand.
+Triton is imported and the kernels are compiled inside the launching
+functions only.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,7 +63,8 @@ from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/softmax_xent/kernel.py"
 MAX_V = 16384          # the widest row one program holds whole
-WIDE_V = 4096          # the column block of rows wider than MAX_V
+WIDE_V = 4096          # the forward's column block past MAX_V (looped)
+WIDE_BWD_V = 1024      # the backward's there (a program each)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -102,42 +120,53 @@ def _kernels():
                         stride_x, stride_dx, BLOCK_R: tl.constexpr,
                         BLOCK_V: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.program_id(1) * BLOCK_V + tl.arange(0, BLOCK_V)
+        col0 = tl.program_id(1) * BLOCK_V
+        cols = tl.arange(0, BLOCK_V)
         rmask = rows < R
-        mask = rmask[:, None] & (cols[None, :] < V)
+        mask = rmask[:, None] & (cols[None, :] < V - col0)
+        # one 64-bit base a row; the per-element offsets stay 32-bit
         rows64 = rows.to(tl.int64)
-        x = tl.load(x_ptr + rows64[:, None] * stride_x + cols[None, :],
-                    mask=mask, other=0.0).to(tl.float32)
+        x_row = x_ptr + rows64 * stride_x + col0
+        dx_row = dx_ptr + rows64 * stride_dx + col0
         lse = tl.load(lse_ptr + rows, mask=rmask, other=0.0)
         g = tl.load(g_ptr + rows, mask=rmask, other=0.0)
-        lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
-        p = tl.exp(x - lse[:, None])
-        onehot = tl.where(cols[None, :] == lab[:, None], 1.0, 0.0)
-        d = (p - onehot) * g[:, None]
-        tl.store(dx_ptr + rows64[:, None] * stride_dx + cols[None, :],
+        lab = tl.load(lab_ptr + rows, mask=rmask, other=0).to(tl.int32) - col0
+        x = tl.load(x_row[:, None] + cols[None, :], mask=mask,
+                    other=0.0).to(tl.float32)
+        p = tl.exp2((x - lse[:, None]) * 1.4426950408889634)
+        d = tl.where(cols[None, :] == lab[:, None], p - 1.0, p) * g[:, None]
+        tl.store(dx_row[:, None] + cols[None, :],
                  d.to(dx_ptr.dtype.element_ty), mask=mask)
 
-    return triton, xent_fwd_kernel, xent_bwd_kernel, xent_fwd_wide_kernel
+    return xent_fwd_kernel, xent_bwd_kernel, xent_fwd_wide_kernel
 
 
-def _blocks(v):
-    """The backward's (rows, classes) block: up to 4096 values, or the
-    whole row up to ``MAX_V`` classes; ``WIDE_V`` columns of one row past
-    that."""
+class Geometry(NamedTuple):
+    """One program's share of the (R, V) logits, the same in both
+    directions up to ``MAX_V`` classes."""
+    rows: int        # rows a program (``BLOCK_R``)
+    block_v: int     # columns a program holds at once (``BLOCK_V``)
+    warps: int
+    col_blocks: int  # ``block_v``-column blocks a row spans
+
+    def programs(self, r):
+        """Programs along the rows of an R-row tensor."""
+        return -(-r // self.rows)
+
+
+def geometry(v, wide_v=WIDE_V):
+    """Both kernels' blocking of V classes: 4 rows of up to 128 classes in
+    one warp (16 values a thread at most); one row a program of up to
+    ``MAX_V`` classes in 1-8 warps (16 values a thread up to 4,096
+    classes, ``block_v / 256`` past that); past ``MAX_V`` one row in 8
+    warps over ``wide_v``-column blocks, which the forward loops over
+    (``WIDE_V``) and the backward spreads over a second grid axis
+    (``WIDE_BWD_V``)."""
     if v > MAX_V:
-        return 1, WIDE_V
+        return Geometry(1, wide_v, 8, -(-v // wide_v))
     block_v = 1 << max(0, (v - 1).bit_length())
-    block_r = max(1, min(64, 4096 // block_v))
-    return block_r, block_v
-
-
-def _fwd_blocks(v):
-    """The forward's (rows, classes, warps): 16 values a thread up to 512
-    values a program (4 rows of up to 128 classes in one warp), then one
-    row a program in up to 8 warps."""
-    block_v = 1 << max(0, (v - 1).bit_length())
-    block_r = max(1, min(4, 512 // block_v))
-    return block_r, block_v, max(1, min(8, block_r * block_v // 512))
+    rows = 4 if block_v <= 128 else 1
+    return Geometry(rows, block_v, max(1, min(8, rows * block_v // 512)), 1)
 
 
 def _check(x, labels, *rows_f32):
@@ -165,18 +194,18 @@ def xent_fwd(x, labels):
     """x: (R, V) logits on the card; labels: (R,) int64 valid class ids.
     Returns per-row ``(nll, lse)``, both (R,) float32."""
     _check(x, labels)
-    triton, fwd, _, fwd_wide = _kernels()
+    fwd, _, fwd_wide = _kernels()
     r, v = x.shape
     nll = torch.empty(r, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
-    if v > MAX_V:
-        fwd_wide[(r,)](x, labels, nll, lse, v, x.stride(0), BLOCK_V=WIDE_V,
-                       num_warps=8)
+    geo = geometry(v)
+    if geo.col_blocks > 1:
+        fwd_wide[(r,)](x, labels, nll, lse, v, x.stride(0),
+                       BLOCK_V=geo.block_v, num_warps=geo.warps)
     else:
-        block_r, block_v, warps = _fwd_blocks(v)
-        fwd[(triton.cdiv(r, block_r),)](x, labels, nll, lse, r, v,
-                                        x.stride(0), BLOCK_R=block_r,
-                                        BLOCK_V=block_v, num_warps=warps)
+        fwd[(geo.programs(r),)](x, labels, nll, lse, r, v, x.stride(0),
+                                BLOCK_R=geo.rows, BLOCK_V=geo.block_v,
+                                num_warps=geo.warps)
     LAUNCHES["xent_fwd"] += 1
     return nll, lse
 
@@ -185,12 +214,12 @@ def xent_bwd(x, labels, lse, g):
     """``(softmax(x) - onehot) * g`` per row in ``x.dtype``; lse, g: (R,)
     float32."""
     _check(x, labels, lse, g)
-    triton, _, bwd, _ = _kernels()
+    _, bwd, _ = _kernels()
     r, v = x.shape
     dx = torch.empty((r, v), dtype=x.dtype, device=x.device)
-    block_r, block_v = _blocks(v)
-    bwd[(triton.cdiv(r, block_r), triton.cdiv(v, block_v))](
+    geo = geometry(v, WIDE_BWD_V)
+    bwd[(geo.programs(r), geo.col_blocks)](
         x, labels, lse, g, dx, r, v, x.stride(0), dx.stride(0),
-        BLOCK_R=block_r, BLOCK_V=block_v, num_warps=4)
+        BLOCK_R=geo.rows, BLOCK_V=geo.block_v, num_warps=geo.warps)
     LAUNCHES["xent_bwd"] += 1
     return dx

@@ -8,10 +8,12 @@ one (and no JAX, which tests/conftest.py imports):
 Tolerances: permute and the bucket gathers (K4a/K4b) bitwise; the
 quantize/dequantize gathers (K5a/K5b) bitwise in bytes, scales and
 values; bn_act 1 ulp of the working type; xent 1e-5 relative (f32 math)
-forward, 1e-5 relative or 1 bf16 ulp backward, also above the one-block
-width (V 50,257) and on the rows that straddle element 2**31 of a
-131,073 x 16,384 bf16 logits tensor. The sharded epoch at
-world size 1 (NCCL) equals the dense single-device epoch within 1e-5.
+forward, 1e-5 relative or 1 ulp of bf16 / f16 backward, also at the
+shared geometry's edges (V 127-129, 16,385), above the one-block width
+(V 50,257), on the rows that straddle element 2**31 of a 131,073 x 16,384
+bf16 logits tensor, and under CUDA-graph replay of the backward. The
+sharded epoch at world size 1 (NCCL) equals the dense single-device epoch
+within 1e-5.
 rmsnorm (K6) 1e-5 in f32 and 1 bf16 ulp; flash attention (K7) 2e-3 in f32
 and 2e-2 in bf16 (tests/test_kernels.py's bounds), bf16 D 256 served by
 the spill-free Hopper kernel and equal to itself under CUDA-graph replay,
@@ -106,8 +108,11 @@ def test_bn_act_kernel(dev, g, rows, c, relu, dtype):
 
 @pytest.mark.parametrize("rows,v", [(800, 100), (37, 13)] + [
     (rows, v) for rows in (1, 33, 1000) for v in (13, 100, 1000)] + [
-    (3, 50257), (64, 50257)])
-@pytest.mark.parametrize("dtype", DTYPES)
+    (3, 50257), (64, 50257),
+    # the shared geometry's edges: 4 rows a warp up to 128 classes, one
+    # row a program past it, column blocks past MAX_V
+    (33, 127), (33, 128), (33, 129), (5, 16385)])
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16])
 def test_softmax_xent_kernels(dev, rows, v, dtype):
     x = (3 * torch.randn(rows, v, device=dev)).to(dtype).requires_grad_()
     lab = torch.randint(0, v, (rows,), device=dev)
@@ -144,6 +149,44 @@ def test_softmax_xent_rows_past_2_31_elements(dev):
         assert torch.allclose(lse[rows], lse_p, rtol=1e-5, atol=1e-5)
         want = xent_ref.xent_bwd(x[rows], lab[rows], lse[rows], g[rows])
         assert _within(dx[rows], want, torch.finfo(torch.bfloat16).eps)
+
+
+@pytest.mark.parametrize("rows,v,dtype", [
+    (800, 100, torch.bfloat16), (33, 129, torch.float32),
+    (64, 50257, torch.bfloat16)])
+def test_xent_bwd_cuda_graph_replay(dev, rows, v, dtype):
+    """K3b captured in a CUDA graph (one launch counted at capture), then
+    replayed on new values written into the captured inputs: equal to the
+    plain version on those values."""
+    gen = torch.Generator(device=dev).manual_seed(rows + v)
+
+    def fill():
+        x.copy_(3 * torch.randn(rows, v, device=dev, generator=gen))
+        lab.copy_(torch.randint(0, v, (rows,), device=dev, generator=gen))
+        g.copy_(torch.rand(rows, device=dev, generator=gen) / rows)
+        lse.copy_(xent_ref.xent_fwd(x, lab)[1])
+
+    x = torch.empty(rows, v, device=dev, dtype=dtype)
+    lab = torch.empty(rows, device=dev, dtype=torch.int64)
+    g, lse = (torch.empty(rows, device=dev) for _ in range(2))
+    fill()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xent_k.xent_bwd(x, lab, lse, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = K.LAUNCHES["xent_bwd"]
+    with torch.cuda.graph(graph):
+        dx = xent_k.xent_bwd(x, lab, lse, g)
+    assert K.LAUNCHES["xent_bwd"] == before + 1
+    rel = 1e-5 if dtype == torch.float32 else torch.finfo(dtype).eps
+    for _ in range(2):
+        fill()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["xent_bwd"] == before + 1
+        assert _within(dx, xent_ref.xent_bwd(x, lab, lse, g), rel)
 
 
 @pytest.mark.parametrize("rows,feat,sc", [
