@@ -16,9 +16,17 @@ prefill and cached decode (phase 12), and serving (phase 13); then
 gemma-7b at full width: the prefill through the flash-attention kernel at
 head_dim 256 (phase 14), 2-layer f32 checks as phase 9's and a 2-layer
 bf16 prefill against the plain attention path, with minitron-8b's and
-phi3-medium-14b's at D 128 (phase 15), and serving (phase 16). Each phase
-prints its seconds. It prints, as its last line,
-``{"ok": true, "device": {...}}``. Any failed phase raises and the script
+phi3-medium-14b's at D 128 (phase 15), and serving (phase 16); then the
+paper's comparison: ``launch.eval.evaluate_paper`` at ResNet-56 width, 100
+clients, bf16, 2 epochs, with K1-K3 counted and seen by the profiler
+(phase 17), the double-buffered collector on a world-size-1 NCCL group,
+sub-mesh at alpha 1.0 and the whole-mesh fallback at 0.5, at the exact
+and the int8 wire, each equal to the sync exchange's losses and through
+K4a/K4b or K5a/K5b (phase 18), and the entry points ``launch.eval --paper
+--sharded --pipeline double_buffered`` and ``launch.train --paper
+--sharded --scheme sflv2`` (phase 19). Each phase prints its seconds. It
+prints, as its last line, ``{"ok": true, "device": {...}}``. Any failed
+phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
 exits non-zero at once.
 """
@@ -1075,10 +1083,12 @@ def given_perms(clients, perms):
     return GivenPerms(clients, use_kernel=True, it=iter(perms))
 
 
-def sharded_epoch(run, group, gen_seed, wire, steps=None, use_kernel=None):
+def sharded_epoch(run, group, gen_seed, wire, steps=None, use_kernel=None,
+                  **kw):
     """``sfpl_epoch_sharded`` over ``group`` (balanced mode, exact
     backward); ``use_kernel=False`` swaps the K4/K5 kernels for their
-    plain versions."""
+    plain versions; ``kw`` (``alpha``, ``collector_pipeline``,
+    ``collector_submesh``) goes to the epoch."""
     from repro_torch.core import engine_dist as ED
     _, data, split, opt, st = run
     if steps is not None:
@@ -1089,7 +1099,7 @@ def sharded_epoch(run, group, gen_seed, wire, steps=None, use_kernel=None):
         torch.Generator().manual_seed(gen_seed), st, data, split, opt, opt,
         group=group, num_clients=CLIENTS, batch_size=BATCH,
         collector_mode="balanced", wire_dtype=wire, use_kernel=use_kernel,
-        device=DEV)
+        device=DEV, **kw)
 
 
 def timed_epoch(epoch):
@@ -1814,6 +1824,174 @@ def gemma_serving():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phases 17-19: the paper's comparison, the streamed collector, the
+# entry points of both
+
+def paper_comparison(smi):
+    phase("17. launch.eval.evaluate_paper: SFPL against SFLv2, ResNet-56 "
+          "width 16, 100 clients x batch 8, 32x32, bf16, kernels on, 2 "
+          "epochs, one device")
+    print(f"card: {smi} (every time below was taken on it)")
+    from repro_torch.launch.eval import evaluate_paper
+    kw = dict(depth=56, width=WIDTH, hw=HW, batch_size=BATCH,
+              compute_dtype="bfloat16", use_kernel=True)
+    K.reset_launches()
+    rep = evaluate_paper(num_clients=CLIENTS, epochs=2, **kw)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for scheme in ("sfpl", "sflv2"):
+        r = rep[scheme]
+        print(f"  {scheme:5s} IID {r['iid']['accuracy']:.3f}%  non-IID "
+              f"{r['noniid']['accuracy']:.3f}%  training wall "
+              f"{r['seconds']:.3f} s ({smi})")
+    print(f"launches: {launches}")
+    keys = {"sfpl", "sflv2", "num_clients", "sharded"}
+    if not keys <= set(rep) or rep["num_clients"] != CLIENTS:
+        raise AssertionError(f"evaluate_paper returned {sorted(rep)}")
+    for scheme in ("sfpl", "sflv2"):
+        for proto in ("iid", "noniid"):
+            acc = rep[scheme][proto]["accuracy"]
+            if not (math.isfinite(acc) and 0.0 <= acc <= 100.0):
+                raise AssertionError(f"{scheme} {proto} accuracy {acc}")
+    missing = [k for k in SINGLE_DEVICE if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"evaluate_paper launched no {missing}")
+    # the same kernels seen by the profiler, on a short run of the same
+    # width (2 clients, 1 epoch): the profile of the full run would hold
+    # over a million kernel records
+    seen = profile_steps(lambda _: evaluate_paper(num_clients=2, epochs=1,
+                                                  **kw),
+                         steps=1, what="evaluate_paper calls (2 clients, "
+                         "1 epoch)")
+    missing = [k for k in SINGLE_DEVICE if not seen[k][0]]
+    if missing:
+        raise AssertionError(f"the profile shows no launch of {missing}: "
+                             f"{seen}")
+    return launches
+
+
+def streamed_path(smi):
+    phase("18. streamed collector: sfpl_epoch_sharded(collector_pipeline="
+          "'double_buffered') on a world-size-1 NCCL group, ResNet-56 width "
+          "16, 100 clients x batch 8, 32x32, bf16, 4 steps: sub-mesh (alpha "
+          "1.0) and the whole-mesh fallback (alpha 0.5), exact and int8 "
+          "wire, each against the sync exchange")
+    print(f"card: {smi} (every time below was taken on it)")
+    from repro_torch.core import engine_dist as ED
+    run = build_run(56, CLIENTS, HW)
+    steps = 4
+    row = HW * HW * WIDTH
+    n = CLIENTS * BATCH
+    cases = [("sub-mesh, alpha 1.0", 1.0, None),
+             ("fallback, alpha 0.5", 0.5, False)]
+    group = ED.init_data_group(DEV)
+    try:
+        # NCCL communicators start at first use: one epoch of each path
+        # before anything is timed or compared
+        for _, alpha, submesh in cases:
+            sharded_epoch(run, group, 9, None, alpha=alpha)
+            sharded_epoch(run, group, 9, None, alpha=alpha,
+                          collector_pipeline="double_buffered",
+                          collector_submesh=submesh)
+        torch.cuda.synchronize()
+        # cuDNN deterministic for the comparisons only (as phase 6)
+        torch.backends.cudnn.deterministic = True
+        launches = {}
+        for wire in (None, "int8"):
+            for name, alpha, submesh in cases:
+                _, l_sync = sharded_epoch(run, group, 1, wire, alpha=alpha)
+                K.reset_launches()
+                _, l_str = sharded_epoch(run, group, 1, wire, alpha=alpha,
+                                         collector_pipeline="double_buffered",
+                                         collector_submesh=submesh)
+                torch.cuda.synchronize()
+                launches[name, wire] = dict(K.LAUNCHES)
+                l_sync, l_str = l_sync.float().cpu(), l_str.float().cpu()
+                d = float((l_str - l_sync).abs().max())
+                print(f"  {name}, wire {wire or 'exact'}: streamed "
+                      f"{l_str.tolist()} sync {l_sync.tolist()} max |diff| "
+                      f"{d:.3e} (must be 0)")
+                if not bool(torch.isfinite(l_str).all()):
+                    raise AssertionError(f"non-finite losses {l_str}")
+                if d != 0.0:
+                    raise AssertionError(
+                        f"{name}, wire {wire}: streamed losses differ from "
+                        f"the sync exchange's by {d}")
+                ours = (("bucket_permute", "unbucket_permute")
+                        if wire is None else ("quant_bucket_permute",
+                                              "dequant_unbucket_permute"))
+                missing = [k for k in ours if launches[name, wire][k] <= 0]
+                if missing:
+                    raise AssertionError(f"{name}, wire {wire}: the streamed "
+                                         f"path launched no {missing}")
+        torch.backends.cudnn.deterministic = False
+        print("launches per streamed epoch: " + "; ".join(
+            f"{name} {wire or 'exact'}: " + ", ".join(
+                f"{k} {v}" for k, v in counts.items() if v)
+            for (name, wire), counts in launches.items()))
+
+        for name, alpha, submesh in cases:
+            coll = group.collector(CLIENTS, alpha=alpha,
+                                   pipeline="double_buffered",
+                                   submesh=submesh)
+            sync = group.collector(CLIENTS, alpha=alpha)
+            perm = coll.make_perm(torch.Generator().manual_seed(1), n, DEV)
+            prep = coll.prepare(perm, n)
+            bf16 = torch.bfloat16
+            print(f"  {name}: exchange bytes per step (bf16 rows) "
+                  f"{coll.exchange_bytes(prep, row, bf16)} streamed, "
+                  f"{sync.exchange_bytes(sync.prepare(perm, n), row, bf16)}"
+                  f" sync; re-layout bytes "
+                  f"{coll.relayout_bytes(prep, row, bf16)}")
+            turns = {"sync": [], "double_buffered": []}
+            for _ in range(2):
+                for pipe in turns:
+                    turns[pipe].append(timed_epoch(lambda: sharded_epoch(
+                        run, group, 2, None, alpha=alpha,
+                        collector_pipeline=pipe,
+                        collector_submesh=submesh if pipe != "sync"
+                        else None)))
+            print(f"  {name}: warm ms/step in turns, " + "; ".join(
+                f"{pipe} " + ", ".join(f"{t / steps * 1e3:.1f}" for t in v)
+                for pipe, v in turns.items()) + f" ({smi})")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        ED.close_data_group()
+    return launches
+
+
+def launcher_entry_points(smi):
+    phase("19. entry points: python -m repro_torch.launch.eval --paper "
+          "--sharded --pipeline double_buffered, and python -m "
+          "repro_torch.launch.train --paper --sharded --scheme sflv2 (world "
+          "size 1, NCCL)")
+    print(f"card: {smi} (every time below was taken on it)")
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    runs = [(["repro_torch.launch.eval", "--paper", "--sharded",
+              "--pipeline", "double_buffered"],
+             ["matched fleet (8 clients, sharded=True", "  sfpl ",
+              "  sflv2 "]),
+            (["repro_torch.launch.train", "--paper", "--sharded",
+              "--scheme", "sflv2"],
+             ["sharded SFLv2: 1 rank(s)", "non-IID accuracy",
+              "first loss"])]
+    for args, lines in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m"] + args, cwd=HERE,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        print(f"$ python -m {' '.join(args)}  "
+              f"({time.perf_counter() - t0:.1f} s on {smi})")
+        print(res.stdout.strip())
+        if res.returncode != 0:
+            raise AssertionError(f"{args[0]} exited {res.returncode}:\n"
+                                 f"{res.stderr[-4000:]}")
+        missing = [line for line in lines if line not in res.stdout]
+        if missing:
+            raise AssertionError(f"{args[0]} printed no {missing}")
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -1831,6 +2009,9 @@ def main():
     launches_g = gemma_prefill()
     gemma_checks()
     gemma_serving()
+    paper_comparison(smi)
+    streamed_path(smi)
+    launcher_entry_points(smi)
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}

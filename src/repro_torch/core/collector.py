@@ -4,6 +4,13 @@ The collector pools smashed data and labels from all clients, shuffles the
 pool before the server trains on it, and de-shuffles the returned
 activation gradients so each slice goes back to its source client. The
 pool is client-major: row ``k * B + j`` is sample ``j`` of client ``k``.
+
+``shuffle`` / ``deshuffle`` gather rows by a permutation on one device
+(float rows through the ``collector_permute`` kernel with
+``use_kernel``); ``GlobalCollector`` wraps them for the simulation
+engine. The JAX package's ``distributed_shuffle`` is a gather that GSPMD
+partitions into collectives; its counterpart here is the explicit
+exchange of ``core.round.MeshAllToAll`` (``core.collector_dist``).
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ def make_permutation(gen, n, device=None):
 
 
 def _permute(x, perm, use_kernel):
-    if use_kernel:
+    if use_kernel and x.is_floating_point():
         from repro_torch.kernels.collector_permute.ops import (
             collector_permute)
         return collector_permute(x, perm)
@@ -27,7 +34,8 @@ def _permute(x, perm, use_kernel):
 
 
 def shuffle(tree, perm, *, use_kernel=False):
-    """Apply ``perm`` along axis 0 of every leaf of a dict (or a tensor)."""
+    """Apply ``perm`` along axis 0 of every leaf of a dict (or a tensor);
+    ``use_kernel`` takes the float leaves through the kernel."""
     if isinstance(tree, dict):
         return {k: shuffle(v, perm, use_kernel=use_kernel)
                 for k, v in tree.items()}
@@ -122,3 +130,33 @@ def participation_row_mask(mask, batch_size):
     is valid iff client ``k`` participates."""
     return torch.as_tensor(mask, dtype=torch.bool).repeat_interleave(
         batch_size)
+
+
+class GlobalCollector:
+    """Stateful convenience wrapper for the simulation engine.
+
+    ``alpha`` mirrors the paper's accumulation threshold (the collector
+    waits for ``alpha * N`` client batches before shuffling); in the
+    synchronous simulation every client contributes each round, so alpha
+    sets how many pooled batches form one shuffle unit."""
+
+    def __init__(self, num_clients, *, alpha=1.0, use_kernel=False):
+        self.num_clients = num_clients
+        self.alpha = alpha
+        self.use_kernel = use_kernel
+
+    def make_pool_perm(self, gen, n, device=None):
+        """Permutation honouring the accumulation threshold (see
+        ``make_flush_perm``)."""
+        return make_flush_perm(gen, n, self.num_clients, self.alpha, device)
+
+    def shuffle_pool(self, gen, per_client_acts, per_client_labels):
+        pooled = collect({"a": per_client_acts, "y": per_client_labels})
+        n = pooled["a"].shape[0]
+        perm = self.make_pool_perm(gen, n, pooled["a"].device)
+        shuffled = shuffle(pooled, perm, use_kernel=self.use_kernel)
+        return shuffled["a"], shuffled["y"], perm
+
+    def deshuffle_grads(self, grads_pool, perm):
+        d = deshuffle({"g": grads_pool}, perm, use_kernel=self.use_kernel)
+        return uncollect(d, self.num_clients)["g"]

@@ -33,9 +33,20 @@ dequantize during the receive gather. fp8 payloads cross the collective
 as ``uint8`` (gloo does not take ``float8_e4m3fn``). Integer payloads
 (the label pool) ship as they are, through the plain gather.
 
-This slice ports the sync exchange of the JAX package's
-``core/collector_dist.py``; the streaming issue/complete halves and
-sub-mesh plans come with a later slice.
+The streaming (double-buffered) collector splits the exchange into two
+halves so client compute can run between them: ``plan_exchange_issue``
+bucket-gathers a slab and starts ``all_to_all_single(async_op=True)``
+(the in-flight slot holds the send and receive buffers and the work
+handle until ``plan_exchange_complete`` waits on it and gathers the
+received rows into output order). When every flush group covers the same
+number ``S`` of whole rank slabs with ``b % S == 0``
+(``submesh_slice_size``), each group's exchange is DENSE and confined to
+its owning slice of ``S`` ranks (``build_submesh_route_plans``; the
+collective runs over a subgroup of those ranks). Otherwise the streamed
+fallback exchanges each group over every rank in fine slabs of ``n_g /
+S`` rows, a layout no rank holds; ``relayout_counts`` and ``relayout``
+move a group's rows between the ranks' home slabs and the fine slabs with
+one ``all_to_all_single`` of computed split sizes each way.
 
 >>> pair_capacity(64, 8, 1.0)        # slack-buffered: b/S + 1 per pair
 2
@@ -48,7 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -202,6 +213,88 @@ def uniform_auto_slack(n, num_shards, group_sizes=None, *, probes=16,
                                       margin)
 
 
+def submesh_slice_size(n, n_shards, group_sizes):
+    """Ranks per owning slice when the grouped layout qualifies for the
+    sub-mesh streaming exchange, else ``None``: every flush group covers
+    the SAME number ``S`` of whole ``b = n // n_shards``-row slabs (group
+    ``g`` owns ranks ``[g*S, (g+1)*S)``) and ``b % S == 0`` (exactly
+    ``b/S`` rows per in-slice pair). One global flush qualifies with the
+    whole group as its slice.
+
+    >>> submesh_slice_size(64, 8, [16, 16, 16, 16])
+    2
+    >>> submesh_slice_size(64, 8, [64])
+    8
+    >>> submesh_slice_size(64, 8, [32, 16, 16]) is None
+    True
+    """
+    b = n // n_shards
+    sizes = list(group_sizes) if group_sizes else [n]
+    if any(size % b for size in sizes):
+        return None                     # a group straddles a slab boundary
+    spans = {size // b for size in sizes}
+    if len(spans) != 1:
+        return None                     # slices of unequal sizes
+    slice_size = spans.pop()
+    if b % slice_size or n_shards % slice_size:
+        return None
+    return slice_size
+
+
+def submesh_axis_groups(n_shards, slice_size):
+    """The contiguous ``slice_size``-rank slices that partition the
+    ``n_shards`` ranks: each flush group's collective runs within its
+    slice."""
+    return [list(range(j, j + slice_size))
+            for j in range(0, n_shards, slice_size)]
+
+
+def _np_balanced_perm(rng, n, num_shards):
+    """Host-side numpy replica of ``make_balanced_perm``'s structure
+    (shard shuffles around the equal-block exchange) for load probing."""
+    b = n // num_shards
+
+    def shard_shuffle():
+        return np.concatenate([rng.permutation(b) + i * b
+                               for i in range(num_shards)])
+
+    p1 = shard_shuffle()
+    blk = b // num_shards
+    src = np.arange(n)
+    shard = src // b
+    pos = src % b
+    p2 = (pos // blk) * b + (pos % blk) + shard * blk
+    p3 = shard_shuffle()
+    return p1[p2[p3]]
+
+
+@functools.lru_cache(maxsize=None)
+def _balanced_stream_slack_cached(n, num_shards, span, probes, seed, margin):
+    rng = np.random.default_rng(seed)
+    worst = 0
+    for _ in range(probes):
+        perm = (_np_balanced_perm(rng, n, span) if span > 1
+                else rng.permutation(n))
+        worst = max(worst, max_pair_load(perm, num_shards))
+    b = n // num_shards
+    # never above the capacity-safe slack = num_shards (cap = b + 1 per
+    # pair holds any permutation of the group)
+    return min((worst + margin) * num_shards / b, float(num_shards))
+
+
+def balanced_stream_slack(n, num_shards, span, *, probes=16, seed=0,
+                          margin=1):
+    """Slack of the streamed whole-group fallback for one BALANCED flush
+    group of ``n`` rows: ``max_pair_load`` probed over numpy draws of the
+    group's permutation family (a balanced exchange over ``span`` blocks,
+    or a uniform shuffle at ``span <= 1``) against the ``n //
+    num_shards``-row fine slabs, plus ``margin`` rows, clamped at
+    ``num_shards``. Empirical, so pair it with ``check_capacity``. The
+    probes and their memo are the JAX package's, so the value is too."""
+    return _balanced_stream_slack_cached(n, num_shards, span, probes, seed,
+                                         margin)
+
+
 def _raise_on_overflow(count):
     if count > 0:
         raise RuntimeError(
@@ -225,6 +318,11 @@ class RoutePlan:
         row ``n_shards * cap``.
       * ``overflow``: the count of rows over capacity (a 0-d int32 tensor),
         ``None`` on dense plans.
+
+    ``slice_size`` is ``None`` for a whole-group exchange; a sub-mesh plan
+    (``build_submesh_route_plans``) sets it to its slice's rank count
+    ``S``, its rows ``[g*S, (g+1)*S)`` of the index arrays hold the slice
+    plan and its collective runs over those ``S`` ranks only.
     """
     send_idx: torch.Tensor
     recv_idx: torch.Tensor
@@ -233,10 +331,12 @@ class RoutePlan:
     n_shards: int
     cap: int
     may_drop: bool
+    slice_size: Optional[int] = None
 
     @property
     def dense(self):
-        return not self.may_drop and self.n_shards * self.cap == \
+        shards = self.slice_size or self.n_shards
+        return not self.may_drop and shards * self.cap == \
             self.n // self.n_shards
 
 
@@ -300,12 +400,54 @@ def build_route_plans(perm, n_shards, *, cap, may_drop=True):
     return fwd, bwd
 
 
+def _embed_slice_plan(plan, slice_index, n_shards):
+    """A slice-local dense plan (over ``S = plan.n_shards`` ranks) in
+    ``(n_shards, b)`` index arrays at rows ``[slice_index * S,
+    (slice_index + 1) * S)``; the other rows stay zero (those ranks take
+    no part in the slice's collective)."""
+    slice_size = plan.n_shards
+    b = plan.recv_idx.shape[1]
+    j0 = slice_index * slice_size
+
+    def embed(idx):
+        out = torch.zeros((n_shards, b), dtype=torch.int32,
+                          device=idx.device)
+        out[j0:j0 + slice_size] = idx
+        return out
+    return RoutePlan(embed(plan.send_idx), embed(plan.recv_idx), None,
+                     n_shards * b, n_shards, plan.cap, False,
+                     slice_size=slice_size)
+
+
+def build_submesh_route_plans(sub_perm, slice_index, n_shards, slice_size):
+    """(forward, backward) DENSE plans of flush group ``slice_index``'s
+    ``(n_g,)`` sub-permutation (group-local rows, ``n_g = slice_size *
+    b``), routed only over the group's own slice of ``slice_size`` ranks:
+    exact capacity ``b / slice_size``, no overflow count, no pad row, and
+    both plans from one O(n_g) inverse, as ``build_route_plans``."""
+    n_g = sub_perm.shape[0]
+    b = n_g // slice_size
+    cap = b // slice_size
+    fwd = _build_one_plan(inverse_permutation_scatter(sub_perm),
+                          slice_size, cap, False)
+    bwd = _build_one_plan(sub_perm, slice_size, cap, False)
+    return (_embed_slice_plan(fwd, slice_index, n_shards),
+            _embed_slice_plan(bwd, slice_index, n_shards))
+
+
+def _plan_exchange_spec(plan):
+    """(ranks in the collective, cap) of a plan's bucket block."""
+    return (plan.slice_size or plan.n_shards), plan.cap
+
+
 def plan_payload_bytes(plan, row_elems, itemsize, *, wire_dtype=None):
     """Wire bytes of ONE collective under a plan: each of the ``n_shards``
-    ranks ships its ``(n_shards, cap)`` bucket block of ``row_elems``-
-    element rows, at ``itemsize`` bytes per element, or at the wire's
-    itemsize plus ``SCALE_BYTES`` per row for a quantized wire."""
-    rows = plan.n_shards * plan.n_shards * plan.cap
+    ranks ships its ``(S, cap)`` bucket block of ``row_elems``-element
+    rows (``S`` the plan's slice, else ``n_shards``), at ``itemsize``
+    bytes per element, or at the wire's itemsize plus ``SCALE_BYTES`` per
+    row for a quantized wire."""
+    S, cap = _plan_exchange_spec(plan)
+    rows = plan.n_shards * S * cap
     wire = resolve_wire_dtype(wire_dtype)
     if wire is None:
         return rows * row_elems * itemsize
@@ -376,25 +518,25 @@ def _dequant_recv_payload(flat, recv_idx, out_dtype, feat_shape,
     return out2.reshape((recv_idx.shape[0],) + tuple(feat_shape))
 
 
-def _all_to_all(send, group, S, cap, pad):
+def _all_to_all(send, group, S, cap, pad, async_op=False):
     """``all_to_all_single`` of a ``(S*cap, ...)`` bucket block: chunk
-    ``s`` goes to rank ``s`` and the chunk from rank ``s`` lands at rows
-    ``[s*cap, (s+1)*cap)``. ``pad`` appends a zero row (the drop slot of
-    slack-buffered plans) to the receive buffer itself, with no copy.
-    Byte-sized floats cross as ``uint8``."""
+    ``s`` goes to rank ``s`` of ``group`` and the chunk from rank ``s``
+    lands at rows ``[s*cap, (s+1)*cap)``. ``pad`` appends a zero row (the
+    drop slot of slack-buffered plans) to the receive buffer itself, with
+    no copy. Byte-sized floats cross as ``uint8``. With ``async_op``
+    returns ``(recv, work)``: ``recv`` is valid after ``work.wait()``."""
     import torch.distributed as dist
+    send = send.contiguous()
     recv = torch.empty((S * cap + pad,) + tuple(send.shape[1:]),
                        dtype=send.dtype, device=send.device)
     if pad:
         recv[S * cap:].zero_()
     body = recv[:S * cap]
     if send.dtype == torch.float8_e4m3fn:
-        dist.all_to_all_single(body.view(torch.uint8),
-                               send.contiguous().view(torch.uint8),
-                               group=group)
-    else:
-        dist.all_to_all_single(body, send.contiguous(), group=group)
-    return recv
+        body, send = body.view(torch.uint8), send.view(torch.uint8)
+    work = dist.all_to_all_single(body, send, group=group,
+                                  async_op=async_op)
+    return (recv, work) if async_op else recv
 
 
 def plan_exchange(x, plan, *, group, rank, use_kernel=False,
@@ -409,7 +551,7 @@ def plan_exchange(x, plan, *, group, rank, use_kernel=False,
     ``wire_dtype`` swaps the two gathers for K5a/K5b with the scales
     packed into the payload; bf16 is a cast around the exchange; integer
     payloads ship as they are."""
-    S, cap = plan.n_shards, plan.cap
+    S, cap = _plan_exchange_spec(plan)
     if check_capacity and plan.overflow is not None:
         _raise_on_overflow(int(plan.overflow))
     wire = _resolve_wire(x.dtype, wire_dtype)
@@ -427,6 +569,106 @@ def plan_exchange(x, plan, *, group, rank, use_kernel=False,
     flat = _all_to_all(bucket, group, S, cap, pad)
     out = _gather_rows(flat, recv_idx, use_kernel=use_kernel)
     return out.to(x.dtype) if wire else out
+
+
+class Slot(NamedTuple):
+    """An issued exchange in flight: the receive buffer (valid after the
+    work handle's ``wait()``), the plan, the wire context ``None`` or
+    ``(wire name, compute dtype, feature shape)``, the work handle, the
+    send buffer (kept alive until the wait) and whether to check the
+    plan's overflow count on completion."""
+    recv: torch.Tensor
+    plan: RoutePlan
+    ctx: Optional[tuple]
+    work: object
+    send: torch.Tensor
+    check: bool
+
+
+def plan_exchange_issue(x, plan, *, group, rank, use_kernel=False,
+                        check_capacity=False, wire_dtype=None):
+    """First half of the split exchange: bucket-gather this rank's rows
+    ``x`` by destination (K4a, or K5a's quantize-gather into the packed
+    wire payload) and start ``all_to_all_single(async_op=True)``. Returns
+    the in-flight ``Slot``; nothing in it depends on later compute, so
+    whatever runs before ``plan_exchange_complete`` overlaps the
+    collective. Under NCCL the wait orders the current stream after the
+    communication stream: no host synchronisation on the path. A
+    sub-mesh plan's ``group`` is its slice's subgroup; ``rank`` is this
+    rank's index in the whole group either way (the plan's rows are)."""
+    S, cap = _plan_exchange_spec(plan)
+    wire = _resolve_wire(x.dtype, wire_dtype)
+    ctx = None if wire is None else (wire, x.dtype, tuple(x.shape[1:]))
+    send_idx = plan.send_idx[rank]
+    if wire is not None and is_quantized(wire):
+        send = _quant_send_payload(x, send_idx, S, cap, wire,
+                                   use_kernel).contiguous()
+    else:
+        x_w = x.to(WIRE_DTYPES[wire]) if wire else x
+        send = _gather_rows(x_w, send_idx, use_kernel=use_kernel,
+                            bucket_shape=(S, cap)).contiguous()
+    recv, work = _all_to_all(send, group, S, cap, int(plan.may_drop),
+                             async_op=True)
+    return Slot(recv, plan, ctx, work, send,
+                check_capacity and plan.overflow is not None)
+
+
+def plan_exchange_complete(slot, *, rank, use_kernel=False):
+    """Second half: wait on the slot's collective, raise on a positive
+    overflow count (every rank alike: the count is replicated), and
+    gather the received block into this rank's output order, undoing the
+    wire format (a cast back, or K5b's dequantize-gather) into the
+    compute dtype it was issued from."""
+    slot.work.wait()
+    if slot.check:
+        _raise_on_overflow(int(slot.plan.overflow))
+    recv_idx = slot.plan.recv_idx[rank]
+    wire = None if slot.ctx is None else slot.ctx[0]
+    if wire is not None and is_quantized(wire):
+        return _dequant_recv_payload(slot.recv, recv_idx, slot.ctx[1],
+                                     slot.ctx[2], use_kernel)
+    out = _gather_rows(slot.recv, recv_idx, use_kernel=use_kernel)
+    return out.to(slot.ctx[1]) if wire else out
+
+
+def relayout_counts(start, stop, b_home, world):
+    """Rows of the pool range ``[start, stop)`` (one flush group) that
+    rank ``h`` holds in its home slab ``[h*b_home, (h+1)*b_home)`` AND
+    rank ``s`` holds in the group's fine slab ``[start + s*b_fine, start +
+    (s+1)*b_fine)``, ``b_fine = (stop - start) / world``: ``counts[h][s]``
+    (host ints, identical on every rank)."""
+    b_fine = (stop - start) // world
+    counts = []
+    for h in range(world):
+        lo, hi = max(start, h * b_home), min(stop, (h + 1) * b_home)
+        counts.append([max(0, min(hi, start + (s + 1) * b_fine)
+                           - max(lo, start + s * b_fine))
+                       for s in range(world)])
+    return counts
+
+
+def relayout(x, counts, *, group, rank, reverse=False):
+    """Move one flush group's rows between the ranks' home slabs and the
+    group's fine slabs (``relayout_counts``) with one
+    ``all_to_all_single`` of computed split sizes. Forward: ``x`` is this
+    rank's home rows of the group (in pool order) and the result its fine
+    slab; ``reverse`` goes back. Rows stay in pool order both ways, since
+    both layouts cut the group into ascending ranges. When no row changes
+    rank (the counts are diagonal) no collective runs."""
+    import torch.distributed as dist
+    world = len(counts)
+    if all(counts[h][s] == 0 for h in range(world) for s in range(world)
+           if h != s):
+        return x
+    send = [counts[rank][s] for s in range(world)]
+    recv = [counts[h][rank] for h in range(world)]
+    if reverse:
+        send, recv = recv, send
+    out = torch.empty((sum(recv),) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
 
 
 class _PlanShuffle(torch.autograd.Function):

@@ -30,8 +30,10 @@ from repro_torch.tree import grads, to_device, tree_map, with_grad
 
 @dataclasses.dataclass(frozen=True)
 class SplitModel:
-    # (cparams, cstate, x, training, rmsd) -> (smashed, new_cstate); takes
-    # one client's trees, or client-stacked trees with stacked x
+    # (cparams, cstate, x, training, rmsd[, reduce]) -> (smashed,
+    # new_cstate); takes one client's trees, or client-stacked trees with
+    # stacked x; ``reduce`` takes one client's BN statistics over its
+    # batch split across ranks (sharded SFLv2)
     client_fwd: Callable
     # (sparams, sstate, A, y, training, rmsd[, valid][, reduce]) ->
     #     (loss, (new_sstate, logits)); ``reduce`` (a differentiable sum
@@ -59,9 +61,9 @@ def make_resnet_split(cfg, policy=None):
     else:
         loss_fn = softmax_cross_entropy
 
-    def client_fwd(cp, cs, x, training=True, rmsd=None):
+    def client_fwd(cp, cs, x, training=True, rmsd=None, reduce=None):
         return R.client_apply(cp, cs, x, training=training, rmsd=rmsd,
-                              policy=policy)
+                              policy=policy, reduce=reduce)
 
     def server_loss(sp, ss, a, y, training=True, rmsd=None, valid=None,
                     reduce=None):

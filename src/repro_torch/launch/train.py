@@ -5,7 +5,8 @@
         [--compute-dtype bfloat16] [--device cpu]
     PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.train \
         --paper --sharded [--collector uniform] [--wire-dtype int8] \
-        [--wire-dtype-bwd int8] --device cpu
+        [--wire-dtype-bwd int8] [--pipeline double_buffered] \
+        [--submesh | --no-submesh] [--pods 2] [--scheme sflv2] --device cpu
 
 SFPL (Algorithm 1 + 2, default) or the SFLv2 baseline on the synthetic
 CIFAR set with a split ResNet, one client per class (only positive
@@ -17,18 +18,22 @@ statistics and loss. The collector's shuffle runs through the
 ``collector_permute`` kernel on the card (``--no-kernel`` keeps the plain
 gather).
 
-``--sharded`` runs the SFPL epoch over the ranks of a process group
-(``torchrun``'s, or world size 1 without it): each rank holds a block of
-clients, the collector is one ``all_to_all`` per direction in
-``--collector {balanced,uniform}`` mode through the bucket kernels, and
+``--sharded`` runs the epoch over the ranks of a process group
+(``torchrun``'s, or world size 1 without it). SFPL: each rank holds a
+block of clients, the collector is one ``all_to_all`` per direction in
+``--collector {balanced,uniform}`` mode through the bucket kernels, or
+one per flush group with ``--pipeline double_buffered`` (each issued
+while the next group's client forward runs; ``--submesh`` /
+``--no-submesh`` force the exchange over each group's own slice of ranks
+or over all of them); ``--pods N`` lays the ranks out as N pods; and
 ``--wire-dtype`` / ``--wire-dtype-bwd`` narrow the smashed rows and the
 routed-back gradient rows on the wire (int8/fp8 through the fused
-quantize kernels). gloo on the CPU, NCCL on the card (one rank per card).
+quantize kernels). SFLv2 (``--scheme sflv2``): the visitation stays
+sequential and each client's batch is split over the ranks. gloo on the
+CPU, NCCL on the card (one rank per card).
 
-Not in this slice: the double-buffered collector (``--pipeline
-double_buffered``), sub-mesh routing (``--submesh``) and pods (``--pods``),
-sharded SFLv2, the fault knobs and checkpoints (``--ckpt``, ``--resume``,
-``--drop-rate``, ``--straggler-*``), and LM mode. They raise
+Not in this slice: the fault knobs and checkpoints (``--ckpt``,
+``--resume``, ``--drop-rate``, ``--straggler-*``), and LM mode. They raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
@@ -39,10 +44,7 @@ import time
 
 import torch
 
-from repro_torch.core.round import C2
-
 LATER = {
-    "pods": C2,
     "ckpt": "slice D (fault tolerance and checkpoints)",
     "resume": "slice D (fault tolerance and checkpoints)",
     "drop_rate": "slice D (fault tolerance and checkpoints)",
@@ -65,17 +67,18 @@ def make_compute_policy(compute_dtype, use_kernel=None):
 def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
                 depth=8, width=8, hw=8, lr=0.05, scheme="sfpl", alpha=1.0,
                 compute_dtype="float32", sharded=False, collector="balanced",
-                pipeline="sync", submesh=None, wire_dtype=None,
+                pipeline="sync", submesh=None, pods=None, wire_dtype=None,
                 wire_dtype_bwd=None, log_every=1, seed=0, device=None,
                 **later):
     """DCML rounds on synthetic CIFAR, one client per class. ``scheme``
     picks SFPL or SFLv2; ``alpha`` is the collector's flush threshold;
     ``use_kernel=None`` runs the collector's gathers through their kernels
-    when CUDA is present. ``sharded`` runs SFPL over the process group's
-    ranks with the ``collector`` mode and wire dtypes (see the module
-    docstring). Returns the per-epoch mean losses and prints the non-IID
-    accuracy at the end (rank 0 prints). Knobs of later slices
-    (``LATER``, ``pipeline="double_buffered"``, ``submesh``) raise
+    when CUDA is present. ``sharded`` runs the scheme over the process
+    group's ranks: SFPL with the ``collector`` mode, ``pipeline``,
+    ``submesh``, ``pods`` and wire dtypes, SFLv2 with each client's batch
+    split over the ranks (see the module docstring). Returns the
+    per-epoch mean losses and prints the non-IID accuracy at the end
+    (rank 0 prints). Knobs of later slices (``LATER``) raise
     ``NotImplementedError``."""
     for knob, value in later.items():
         if knob not in LATER:
@@ -84,16 +87,15 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
         if value:
             raise NotImplementedError(
                 f"{knob} is not ported yet: it comes with {LATER[knob]}")
-    if pipeline != "sync" or submesh:
-        raise NotImplementedError(
-            f"the {pipeline} collector pipeline and sub-mesh routing are "
-            f"not ported yet: they come with {C2}")
-    if sharded and scheme != "sfpl":
-        raise NotImplementedError(f"sharded {scheme} is not ported yet: it "
-                                  f"comes with {C2}")
-    if not sharded and (wire_dtype or wire_dtype_bwd):
-        raise ValueError("--wire-dtype applies to the sharded collector: "
-                         "add --sharded")
+    sfpl_sharded = sharded and scheme == "sfpl"
+    if not sfpl_sharded and (wire_dtype or wire_dtype_bwd):
+        raise ValueError("--wire-dtype applies to the sharded SFPL "
+                         "collector: add --sharded (scheme sfpl)")
+    if not sfpl_sharded and (pipeline != "sync" or submesh is not None
+                             or pods is not None):
+        raise ValueError("--pipeline, --submesh and --pods apply to the "
+                         "sharded SFPL collector: add --sharded (scheme "
+                         "sfpl)")
     from repro_torch.core import engine as E
     from repro_torch.core import engine_dist as ED
     from repro_torch.core import round as RD
@@ -110,7 +112,7 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
     if sharded:
         import torch.distributed as dist
         own_group = not dist.is_initialized()
-        group = ED.init_data_group(dev)
+        group = ED.init_data_group(dev, pods=pods)
         if dev.type == "cuda":
             dev = torch.device("cuda", torch.cuda.current_device())
     say = print if group.rank == 0 else (lambda *a, **k: None)
@@ -130,36 +132,51 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
         st = to_device(E.init_dcml_state(gen, lambda g: R.init(g, cfg),
                                          num_clients, opt, opt), dev)
         if sharded:
-            shards = ED.fit_shards(num_clients, batch_size, alpha=alpha,
-                                   collector_mode=collector,
+            shards = ED.fit_shards(num_clients, batch_size, scheme=scheme,
+                                   alpha=alpha, collector_mode=collector,
+                                   collector_pipeline=pipeline,
+                                   collector_submesh=submesh, pods=pods,
                                    max_shards=group.world,
                                    wire_dtype=wire_dtype,
                                    wire_dtype_bwd=wire_dtype_bwd)
             if shards != group.world:
                 raise ValueError(
-                    f"{num_clients} clients x batch {batch_size} at alpha "
-                    f"{alpha} in {collector} mode split over at most "
-                    f"{shards} of the {group.world} ranks: run with "
-                    f"--nproc_per_node {shards}, or change --clients / "
-                    f"--alpha / --collector")
+                    f"{scheme} with {num_clients} clients x batch "
+                    f"{batch_size} at alpha {alpha} in {collector} mode "
+                    f"({pipeline}, submesh={submesh}, pods={pods}) splits "
+                    f"over at most {shards} of the {group.world} ranks: "
+                    f"run with --nproc_per_node {shards}, or change "
+                    f"--clients / --batch / --alpha / --collector")
+        if sfpl_sharded:
             say(f"sharded SFPL: {group.world} rank(s), collector="
-                f"{collector}, alpha={alpha}, wire_dtype={wire_dtype}, "
+                f"{collector}, alpha={alpha}, pipeline={pipeline}, "
+                f"submesh={submesh}, pods={pods}, wire_dtype={wire_dtype}, "
                 f"wire_dtype_bwd={wire_dtype_bwd}", flush=True)
             st = ED.shard_dcml_state(st, group)
             data = ED.shard_client_data(data, group)
+        elif sharded:
+            say(f"sharded SFLv2: {group.world} rank(s), each client's "
+                f"batch of {batch_size} split over them, sequential "
+                f"visitation kept", flush=True)
         coll = RD.SINGLE.collector(num_clients, alpha=alpha,
                                    use_kernel=use_kernel)
 
         t0 = time.time()
         mean_losses = []
         for ep in range(epochs):
-            if sharded:
+            if sfpl_sharded:
                 st, losses = ED.sfpl_epoch_sharded(
                     gen, st, data, split, opt, opt, group=group,
                     num_clients=num_clients, batch_size=batch_size,
                     alpha=alpha, use_kernel=use_kernel,
-                    collector_mode=collector, wire_dtype=wire_dtype,
+                    collector_mode=collector, collector_pipeline=pipeline,
+                    collector_submesh=submesh, wire_dtype=wire_dtype,
                     wire_dtype_bwd=wire_dtype_bwd, device=dev)
+            elif sharded and scheme == "sflv2":
+                st, losses = ED.sflv2_epoch_sharded(
+                    gen, st, data, split, opt, opt, group=group,
+                    num_clients=num_clients, batch_size=batch_size,
+                    device=dev)
             elif scheme == "sflv2":
                 st, losses = E.sflv2_epoch(gen, st, data, split, opt, opt,
                                            num_clients=num_clients,
@@ -176,7 +193,7 @@ def train_paper(*, num_clients=8, epochs=4, batch_size=8, use_kernel=None,
             if ep % log_every == 0 or ep == epochs - 1:
                 say(f"epoch {ep:3d} loss {mean_losses[-1]:.4f} "
                     f"({time.time() - t0:.1f}s)", flush=True)
-        if sharded:
+        if sfpl_sharded:
             st = ED.gather_clients(st, group)
         rep = evaluate_split_noniid(st, split, ex, ey, num_clients,
                                     rmsd=False, batch=2 * batch_size)
@@ -223,15 +240,28 @@ def main(argv=None):
     ap.add_argument("--wire-dtype-bwd", dest="wire_dtype_bwd", default=None,
                     help="wire dtype of the routed-back gradient rows")
     ap.add_argument("--pipeline", default="sync",
-                    choices=("sync", "double_buffered"))
-    ap.add_argument("--submesh", action="store_true", default=None)
-    for flag in ("--ckpt", "--resume", "--pods", "--drop-rate",
-                 "--straggler-rate", "--straggler-timeout"):
+                    choices=("sync", "double_buffered"),
+                    help="sharded SFPL collector pipeline: sync (one "
+                         "blocking exchange) or double_buffered (one "
+                         "exchange a flush group, overlapping the next "
+                         "group's client forward)")
+    ap.add_argument("--submesh", dest="submesh", action="store_true",
+                    default=None,
+                    help="force sub-mesh streaming on (default: on when "
+                         "the balanced grouped layout qualifies)")
+    ap.add_argument("--no-submesh", dest="submesh", action="store_false",
+                    help="force the whole-mesh streaming fallback")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="lay the sharded SFPL ranks out as this many pods "
+                         "(the 2-D ('pod', 'data') topology)")
+    for flag in ("--ckpt", "--resume", "--drop-rate", "--straggler-rate",
+                 "--straggler-timeout"):
         ap.add_argument(flag, default=None)
     args = ap.parse_args(argv)
     if not args.paper:
         raise NotImplementedError("LM mode is not ported yet: it comes with "
-                                  "slice E (the LM family); pass --paper")
+                                  "the LM-training slice (ROADMAP section "
+                                  "1, 'LM training'); pass --paper")
     later = {k: getattr(args, k) for k in LATER}
     losses = train_paper(num_clients=args.clients, epochs=args.epochs,
                          batch_size=args.batch, use_kernel=args.use_kernel,
@@ -240,7 +270,8 @@ def main(argv=None):
                          compute_dtype=args.compute_dtype, seed=args.seed,
                          device=args.device, sharded=args.sharded,
                          collector=args.collector, pipeline=args.pipeline,
-                         submesh=args.submesh, wire_dtype=args.wire_dtype,
+                         submesh=args.submesh, pods=args.pods,
+                         wire_dtype=args.wire_dtype,
                          wire_dtype_bwd=args.wire_dtype_bwd, **later)
     if int(os.environ.get("RANK", "0")) == 0:
         print(f"first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")

@@ -1,2 +1,3 @@
 from repro_torch.metrics.classification import (
-    accuracy, confusion_matrix, classification_report)
+    accuracy, confusion_matrix, classification_report, f1_macro,
+    precision_at_1, recall_macro)

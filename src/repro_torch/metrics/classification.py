@@ -19,6 +19,27 @@ def _prf(cm):
     return precision, recall, f1
 
 
+def _macro(v):
+    """Mean over classes as XLA lowers ``jnp.mean``: the sum times the
+    reciprocal of the count."""
+    return v.sum() * (1.0 / v.numel())
+
+
+def precision_at_1(preds, labels, num_classes):
+    p, _, _ = _prf(confusion_matrix(preds, labels, num_classes))
+    return _macro(p)
+
+
+def recall_macro(preds, labels, num_classes):
+    _, r, _ = _prf(confusion_matrix(preds, labels, num_classes))
+    return _macro(r)
+
+
+def f1_macro(preds, labels, num_classes):
+    _, _, f = _prf(confusion_matrix(preds, labels, num_classes))
+    return _macro(f)
+
+
 def accuracy(preds, labels):
     return (preds.long() == labels.long()).float().mean()
 

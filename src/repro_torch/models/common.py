@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.tree import tree_leaves
+
 IGNORE_LABEL = -100
 
 
@@ -166,3 +168,8 @@ def constrain_dims(x, mesh_axes, roles):
         raise NotImplementedError(
             "mesh_axes: the sharded LM belongs to a later slice of the port")
     return x
+
+
+def count_params(params):
+    """Number of scalars in a parameter tree."""
+    return sum(int(x.numel()) for x in tree_leaves(params))

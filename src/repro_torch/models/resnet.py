@@ -98,15 +98,18 @@ def _bn(p, s, x, *, training, rmsd, policy=None, relu=False, valid=None,
                                reduce=reduce)
 
 
-def client_apply(params, state, x, *, training=True, rmsd=None, policy=None):
+def client_apply(params, state, x, *, training=True, rmsd=None, policy=None,
+                 reduce=None):
     """x (B, H, W, 3) -> smashed data (B, H, W, width), or client-stacked
     (N, B, H, W, 3) -> (N, B, H, W, width) with client-stacked params.
-    Returns (a, new_state); ``a`` is in the compute dtype."""
+    Returns (a, new_state); ``a`` is in the compute dtype. ``reduce`` (a
+    differentiable sum over ranks, one client's batch split over them)
+    takes the BN statistics over the whole batch."""
     if policy is not None:
         x = policy.cast(x)
     h = conv2d_apply(params["conv1"], x, compute_dtype=_cd(policy))
     h, bn1 = _bn(params["bn1"], state["bn1"], h, training=training,
-                 rmsd=rmsd, policy=policy, relu=True)
+                 rmsd=rmsd, policy=policy, relu=True, reduce=reduce)
     return h, {"bn1": bn1}
 
 
@@ -153,3 +156,10 @@ def apply(params, state, x, cfg: ResNetConfig, *, training=True, rmsd=None,
     logits, ss = server_apply(params["server"], state["server"], a, cfg,
                               training=training, rmsd=rmsd, policy=policy)
     return logits, {"client": cs, "server": ss}
+
+
+def client_flops_per_datapoint(cfg: ResNetConfig, hw=32):
+    """MAC count of the client portion (the paper's Table IV)."""
+    conv = 3 * 3 * 3 * cfg.width * hw * hw   # 3x3 conv, stride 1, SAME
+    bn = 2 * cfg.width * hw * hw             # scale + shift
+    return conv + bn

@@ -55,3 +55,11 @@ def zeros(gen, shape, dtype=torch.float32):
 
 def ones(gen, shape, dtype=torch.float32):
     return torch.ones(shape, dtype=dtype, device=_device(gen))
+
+
+def uniform_scaling(gen, shape, scale=1.0, dtype=torch.float32):
+    """U(-lim, lim) with ``lim = scale * sqrt(3 / fan_in)``."""
+    fan_in, _ = _fans(shape)
+    lim = scale * math.sqrt(3.0 / max(fan_in, 1))
+    u = torch.rand(shape, generator=gen, device=_device(gen))
+    return ((2.0 * u - 1.0) * lim).to(dtype)

@@ -19,12 +19,16 @@ class Optimizer(NamedTuple):
     update: Callable     # (grads, opt_state, params, step) -> (new_p, new_s)
 
 
-def sgd_momentum(lr, *, momentum=0.9, weight_decay=0.0):
-    """lr: float or schedule fn(step) -> float."""
+def sgd_momentum(lr, *, momentum=0.9, weight_decay=0.0, nesterov=False,
+                 state_dtype=None):
+    """lr: float or schedule fn(step) -> float. ``nesterov`` steps along
+    ``g + momentum * mu_new``; ``state_dtype`` (a torch dtype) stores the
+    momentum in that dtype (default: the param's), updated in f32."""
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
     def init(params):
-        return {"mu": tree_map(torch.zeros_like, params)}
+        return {"mu": tree_map(lambda p: torch.zeros_like(
+            p, dtype=state_dtype or p.dtype), params)}
 
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
@@ -34,7 +38,8 @@ def sgd_momentum(lr, *, momentum=0.9, weight_decay=0.0):
             if weight_decay:
                 g = g + weight_decay * p.float()
             mu_new = momentum * mu.float() + g
-            p_new = p.float() - lr_t * mu_new
+            d = (g + momentum * mu_new) if nesterov else mu_new
+            p_new = p.float() - lr_t * d
             return p_new.to(p.dtype), mu_new.to(mu.dtype)
 
         out = tree_map(upd, grads, state["mu"], params)    # (p, mu) leaves

@@ -105,9 +105,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_later_slice_knobs_raise_not_implemented():
     from repro_torch.launch.train import main
-    for argv in (["--paper", "--pods", "2"],
-                 ["--paper", "--pipeline", "double_buffered"],
-                 ["--paper", "--ckpt", "s.npz"], ["--paper", "--drop-rate",
+    for argv in (["--paper", "--ckpt", "s.npz"], ["--paper", "--drop-rate",
                                                   "0.2"], []):
         with pytest.raises(NotImplementedError, match="slice"):
             main(argv + ["--device", "cpu", "--epochs", "1"])
@@ -117,24 +115,43 @@ def test_later_slice_knobs_raise_not_implemented():
     ["--pods", "2"], ["--pipeline", "double_buffered"], ["--submesh"],
     ["--sharded", "--scheme", "sflv2"]])
 def test_slice_c2_knobs_raise_naming_c2(argv):
-    """The sharded knobs still to port name slice C2, before any process
-    group or device work."""
+    """The sharded knobs that raised ``NotImplementedError`` naming slice
+    C2 are ported: at world size 1 the double-buffered pipeline and
+    sharded SFLv2 train, while ``--pods 2`` (no divisor of one rank) and
+    ``--submesh`` on the sync pipeline raise the layout's ``ValueError``,
+    as the JAX package's launcher does, before any device work."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="slice C2"):
-        main(["--paper", "--sharded", "--device", "cpu", "--epochs", "1"]
-             + argv)
+    run = lambda: main(["--paper", "--sharded", "--device", "cpu",
+                        "--epochs", "1", "--clients", "4"] + argv)
+    if argv[0] in ("--pods", "--submesh"):
+        with pytest.raises(ValueError, match="pods=2|double_buffered"):
+            run()
+    else:
+        run()
+    # the launcher leaves no process group behind, raising or not
+    assert not torch.distributed.is_initialized()
 
 
 def test_c2_layouts_raise_in_the_engine():
+    """The C2 layouts pass the engine's checks as the JAX package's do;
+    a layout that does not qualify raises ``ValueError`` before any
+    collective, with no process group."""
+    from repro.core import engine_dist as JED
     from repro_torch.core import engine_dist as ED
     from repro_torch.core.round import DataGroup
     for kw in ({"collector_pipeline": "double_buffered"},
-               {"collector_submesh": True}, {"pods": 2}):
-        with pytest.raises(NotImplementedError, match="slice C2"):
+               {"collector_submesh": True}, {"pods": 2},
+               {"collector_pipeline": "double_buffered", "alpha": 0.5,
+                "pods": 2, "collector_submesh": True}):
+        assert ED.check_sfpl_layout(8, 8, 2, **kw) == \
+            JED.check_sfpl_layout(8, 8, 2, **kw)
+    for kw in ({"pods": 3}, {"collector_pipeline": "double_buffered",
+                             "alpha": 0.25, "collector_submesh": True}):
+        with pytest.raises(ValueError):
             ED.check_sfpl_layout(8, 8, 2, **kw)
-    # before any collective: no process group needs to exist
-    with pytest.raises(NotImplementedError, match="slice C2"):
+    with pytest.raises(ValueError, match="collector_submesh=True"):
         ED.sfpl_epoch_sharded(None, {}, {}, None, None, None,
                               group=DataGroup(None, 0, 2), num_clients=8,
-                              batch_size=8,
-                              collector_pipeline="double_buffered")
+                              batch_size=8, alpha=0.25,
+                              collector_pipeline="double_buffered",
+                              collector_submesh=True)
