@@ -24,7 +24,17 @@ sub-mesh at alpha 1.0 and the whole-mesh fallback at 0.5, at the exact
 and the int8 wire, each equal to the sync exchange's losses and through
 K4a/K4b or K5a/K5b (phase 18), and the entry points ``launch.eval --paper
 --sharded --pipeline double_buffered`` and ``launch.train --paper
---sharded --scheme sflv2`` (phase 19). Each phase prints its seconds. It
+--sharded --scheme sflv2`` (phase 19); then fault-tolerant SFPL:
+``train_paper`` at the same width with dropouts and stragglers, 3 epochs
+against 2 and a resume from the checkpoint, whose losses must be equal
+exactly, K1-K3 counted each epoch, and one sharded masked epoch through
+K4a/K4b (phase 20); LM training at full width, f32, AdamW on a fixed
+batch: qwen3-8b at 2 layers with the chunked loss against the full
+logits' and the SFPL loss checks, and xlstm-1.3b at 1 group, each loss
+falling (phase 21); and the entry points ``launch.train --paper`` with
+faults, ``--ckpt`` and ``--resume``, ``launch.train --arch qwen3-8b
+--ckpt`` and ``launch.eval --arch qwen3-8b --ckpt``, which must beat the
+untrained init (phase 22). Each phase prints its seconds. It
 prints, as its last line, ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
@@ -65,6 +75,7 @@ def setup():
 
 
 torch = setup()
+import numpy as np                                            # noqa: E402
 
 from repro_torch import kernels as K                          # noqa: E402
 from repro_torch.configs import get_arch                      # noqa: E402
@@ -1992,6 +2003,272 @@ def launcher_entry_points(smi):
             raise AssertionError(f"{args[0]} printed no {missing}")
 
 
+# --------------------------------------------------------------------------
+# phases 20-22: fault-tolerant SFPL, LM training, their entry points
+
+FAULTS = dict(drop_rate=0.2, straggler_rate=0.1, straggler_delay=0.05,
+              straggler_timeout=0.02)
+
+
+def fault_tolerant_training(smi):
+    phase("20. fault-tolerant SFPL: train_paper, ResNet-56 width 16, 100 "
+          "clients x batch 8, 32x32, bf16, drop 0.2, stragglers 0.1 (0.05 s "
+          "against a 0.02 s timeout), cuDNN deterministic: 3 epochs "
+          "uninterrupted against 2 + a resume for the third; one sharded "
+          "masked epoch (world size 1, NCCL)")
+    print(f"card: {smi} (every time below was taken on it)")
+    import tempfile
+    from repro_torch.core import engine_dist as ED
+    from repro_torch.core import round as RD
+    from repro_torch.core.faults import FaultPlan, ensure_group_survivor
+    from repro_torch.launch.train import train_paper
+    plan = FaultPlan(CLIENTS, drop_rate=FAULTS["drop_rate"],
+                     straggler_rate=FAULTS["straggler_rate"],
+                     straggler_delay=FAULTS["straggler_delay"])
+    expected = []
+    for ep in range(3):
+        mask, wait = plan.participation(
+            ep, straggler_timeout=FAULTS["straggler_timeout"])
+        mask, revived = ensure_group_survivor(mask, CLIENTS)
+        expected.append(mask)
+        print(f"  epoch {ep}: {int(mask.sum())}/{CLIENTS} clients, dropped "
+              f"{np.flatnonzero(~mask).tolist()}, revived {revived}, "
+              f"straggler wait {wait:.2f} s")
+
+    # each sfpl_round call of train_paper: its mask and its launches
+    rounds, inner = [], RD.sfpl_round
+
+    def counted(*args, **kw):
+        K.reset_launches()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        rounds.append((kw["participation"], dict(K.LAUNCHES)))
+        return out
+
+    kw = dict(depth=56, width=WIDTH, hw=HW, num_clients=CLIENTS,
+              batch_size=BATCH, compute_dtype="bfloat16", **FAULTS)
+    torch.backends.cudnn.deterministic = True
+    RD.sfpl_round = counted
+    try:
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+            a, b = f"{tmp}/a.npz", f"{tmp}/b.npz"
+            walls = []
+            for call in (lambda: train_paper(epochs=3, ckpt=a, ckpt_every=1,
+                                             **kw),
+                         lambda: train_paper(epochs=2, ckpt=b, ckpt_every=1,
+                                             **kw),
+                         lambda: train_paper(epochs=3, resume=b, ckpt=b,
+                                             **kw)):
+                t0 = time.perf_counter()
+                walls.append((call(), time.perf_counter() - t0))
+    finally:
+        RD.sfpl_round = inner
+        torch.backends.cudnn.deterministic = False
+    (l_a, w_a), (l_b, w_b), (l_r, w_r) = walls
+    print(f"run A, 3 epochs: losses {l_a} ({w_a:.1f} s with set-up and "
+          f"evaluation); run B, 2 epochs: {l_b} ({w_b:.1f} s); B resumed "
+          f"for the third: {l_r} ({w_r:.1f} s)")
+    epochs = [0, 1, 2, 0, 1, 2]
+    for (mask, launches), ep in zip(rounds, epochs):
+        print(f"  epoch {ep}: {int(mask.sum())} clients in the round; "
+              f"launches " + ", ".join(f"{k} {launches[k]}"
+                                       for k in SINGLE_DEVICE))
+    if len(rounds) != len(epochs):
+        raise AssertionError(f"{len(rounds)} rounds ran, not {len(epochs)}")
+    for (mask, launches), ep in zip(rounds, epochs):
+        if not np.array_equal(mask.cpu().numpy(), expected[ep]):
+            raise AssertionError(f"epoch {ep}: the round's mask is not the "
+                                 f"plan's")
+        missing = [k for k in SINGLE_DEVICE if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"epoch {ep}: the round launched no "
+                                 f"{missing}")
+    if not all(math.isfinite(v) for v in l_a + l_b + l_r):
+        raise AssertionError("non-finite loss")
+    if l_b != l_a[:2] or l_r != l_a[2:]:
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {l_b} + {l_r} != {l_a}")
+    print(f"resumed epoch-3 loss {l_r[0]!r} equals the uninterrupted run's "
+          f"{l_a[2]!r} exactly")
+
+    run = build_run(56, CLIENTS, HW)
+    group = ED.init_data_group(DEV)
+    try:
+        K.reset_launches()
+        _, losses = sharded_epoch(run, group, 1, None,
+                                  participation=torch.from_numpy(expected[0]))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        ED.close_data_group()
+    losses = losses.float().cpu()
+    print(f"sharded masked epoch (epoch 0's mask): losses {losses.tolist()}; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                   if v))
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite sharded losses {losses.tolist()}")
+    missing = [k for k in ("bucket_permute", "unbucket_permute")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the sharded masked epoch launched no "
+                             f"{missing}")
+
+
+def lm_training(smi):
+    phase("21. LM training at full width, f32, TF32 off, AdamW on one fixed "
+          "batch: qwen3-8b (2 layers, B 2 x S 256, 8 steps) with the loss "
+          "checks, and xlstm-1.3b (1 group: 7 mLSTM + 1 sLSTM, B 2 x S 128, "
+          "4 steps)")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("phases 1-20")
+    from repro_torch.core.split_lm import make_collector_perm, sfpl_lm_loss
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import (chunked_lm_loss,
+                                           softmax_cross_entropy)
+    from repro_torch.optim import adamw
+    from repro_torch.tree import grads, with_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, layers, b, s, steps in (("qwen3-8b", 2, 2, 256, 8),
+                                      ("xlstm-1.3b", 8, 2, 128, 4)):
+        spec = get_arch(arch)
+        model = spec.model
+        cfg = spec.make_config(num_layers=layers, compute_dtype="float32")
+        params = lm_init(cfg, seed=5, arch=arch)
+        gen = torch.Generator(device=DEV).manual_seed(6)
+        toks, labels = synthetic_token_stream(gen, batch=b, seq_len=s,
+                                              vocab=cfg.vocab_size)
+        batch = {"tokens": toks, "labels": labels}
+        if arch == "qwen3-8b":
+            with torch.no_grad():
+                hidden, _ = model.forward(params, batch, cfg,
+                                          return_hidden=True)
+                plain = softmax_cross_entropy(
+                    model.unembed(params, hidden, cfg), labels)
+                chunked = chunked_lm_loss(
+                    hidden, labels, lambda xc: model.unembed(params, xc, cfg))
+                full, _ = model.loss_fn(params, batch, cfg)
+                ident, _ = sfpl_lm_loss(model, params, batch, cfg,
+                                        perm=torch.arange(b, device=DEV))
+            rel = abs(float(chunked) - float(plain)) / abs(float(plain))
+            d_id = abs(float(ident) - float(full))
+            print(f"step-0 loss: chunked_lm_loss {float(chunked)!r}, "
+                  f"softmax_cross_entropy of the full logits "
+                  f"{float(plain)!r} (rel diff {rel:.2e}, tol 1e-5); "
+                  f"sfpl_lm_loss, identity perm {float(ident)!r} against "
+                  f"loss_fn {float(full)!r} (|diff| {d_id:.2e}, tol 1e-6 of "
+                  f"the loss)")
+            if rel > 1e-5 or d_id > 1e-6 * abs(float(full)):
+                raise AssertionError("the LM losses disagree")
+            del hidden
+            p = with_grad(params)
+            loss, _ = sfpl_lm_loss(model, p, batch, cfg,
+                                   perm=make_collector_perm(gen, b))
+            g = grads(loss, p)
+            bad = [i for i, t in enumerate(tree_leaves(g))
+                   if not bool(torch.isfinite(t).all())]
+            print(f"sfpl_lm_loss with a random perm: loss {loss.item():.4f}, "
+                  f"{len(tree_leaves(g))} gradient leaves, non-finite: {bad}")
+            if bad or not math.isfinite(loss.item()):
+                raise AssertionError("sfpl_lm_loss gave non-finite grads")
+            del p, g, loss
+        opt = adamw(1e-3)
+        opt_state = opt.init(params)
+        step_fn = make_train_step(spec, cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, opt_state, _, loss = step_fn(params, opt_state, i, batch)
+            losses.append(float(loss))      # synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{arch} ({layers} blocks/layers) train steps: losses "
+              f"{[round(v, 4) for v in losses]}; ms/step "
+              f"{[round(v, 1) for v in ms]} (the first with allocator "
+              f"warm-up); peak memory {peak:.2f} GiB ({smi})")
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        # one more step under the profiler (its result is dropped)
+        profile_steps(lambda _: step_fn(params, opt_state, steps, batch),
+                      steps=1, what=f"{arch} train steps")
+        del params, opt_state, step_fn
+        torch.cuda.empty_cache()
+
+
+def _run_entry(args, env, smi):
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m"] + args, cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=300)
+    print(f"$ python -m {' '.join(args)}  ({time.perf_counter() - t0:.1f} s "
+          f"on {smi})")
+    print(res.stdout.strip())
+    if res.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def _floats(pattern, text):
+    found = [float(v) for v in re.findall(pattern, text)]
+    if not found or not all(math.isfinite(v) for v in found):
+        raise AssertionError(f"no finite value for {pattern!r} in:\n{text}")
+    return found
+
+
+def training_entry_points(smi):
+    phase("22. entry points: python -m repro_torch.launch.train --paper "
+          "with faults, --ckpt and --resume; --arch qwen3-8b --ckpt; python "
+          "-m repro_torch.launch.eval --arch qwen3-8b --ckpt")
+    print(f"card: {smi} (every time below was taken on it)")
+    import tempfile
+    from repro_torch.launch.eval import evaluate_lm
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        state, lm = f"{tmp}/state.npz", f"{tmp}/lm.npz"
+        paper = ["repro_torch.launch.train", "--paper", "--compute-dtype",
+                 "bfloat16", "--drop-rate", "0.2", "--ckpt", state]
+        out = _run_entry(paper + ["--ckpt-every", "1", "--epochs", "2"],
+                         env, smi)
+        first = _floats(r"epoch +\d+ loss ([-\d.e]+)", out)
+        acc = _floats(r"non-IID accuracy ([\d.]+)%", out)
+        if len(first) != 2 or "participation" not in out:
+            raise AssertionError("the fault-tolerant run printed no masks or "
+                                 "not 2 epochs")
+        out = _run_entry(paper + ["--resume", state, "--epochs", "3"], env,
+                         smi)
+        resumed = _floats(r"epoch +\d+ loss ([-\d.e]+)", out)
+        acc += _floats(r"non-IID accuracy ([\d.]+)%", out)
+        if "resumed from" not in out or len(resumed) != 1:
+            raise AssertionError("the resumed run did not resume at epoch 2")
+        print(f"paper losses {first} + resumed {resumed}; non-IID accuracy "
+              f"{acc} %")
+        out = _run_entry(["repro_torch.launch.train", "--arch", "qwen3-8b",
+                          "--steps", "20", "--ckpt", lm], env, smi)
+        lm_first = _floats(r"first loss ([-\d.e]+) ->", out)[0]
+        lm_last = _floats(r"-> last loss ([-\d.e]+)", out)[0]
+        out = _run_entry(["repro_torch.launch.eval", "--arch", "qwen3-8b",
+                          "--ckpt", lm], env, smi)
+    trained = _floats(r"qwen3-8b: loss ([-\d.e]+)", out)[0]
+    ppl = _floats(r"ppl ([\d.]+)", out)[0]
+    tok_acc = _floats(r"token-acc ([\d.]+)", out)[0]
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_smoke_config()
+    p0 = spec.model.init(torch.Generator(device=DEV).manual_seed(0), cfg)
+    before = evaluate_lm(spec, cfg, p0)
+    print(f"qwen3-8b smoke: training loss {lm_first} -> {lm_last}; eval of "
+          f"the checkpoint: loss {trained}, ppl {ppl}, token accuracy "
+          f"{tok_acc}; the untrained init of the same seed: loss "
+          f"{before['loss']:.4f}, token accuracy "
+          f"{before['token_accuracy']:.3f}")
+    if not trained < before["loss"]:
+        raise AssertionError(f"the trained checkpoint ({trained}) does not "
+                             f"beat the untrained init ({before['loss']})")
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -2012,6 +2289,9 @@ def main():
     paper_comparison(smi)
     streamed_path(smi)
     launcher_entry_points(smi)
+    fault_tolerant_training(smi)
+    lm_training(smi)
+    training_entry_points(smi)
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}

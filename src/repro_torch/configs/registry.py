@@ -32,7 +32,7 @@ class ArchSpec:
         if self.family not in _FAMILIES:
             raise NotImplementedError(
                 f"the {self.family} family is not ported yet (ROADMAP "
-                f"slice E)")
+                f"section 1, 'The other model families')")
         return importlib.import_module(_FAMILIES[self.family])
 
 
@@ -57,8 +57,10 @@ def _ensure_loaded():
 def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
     if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; the "
-                       f"port has {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r} (the "
+                       f"MoE, VLM, rglru and whisper configs come with "
+                       f"ROADMAP section 1's next items); the port has "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 
 

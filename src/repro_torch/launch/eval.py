@@ -1,5 +1,8 @@
-"""Evaluation launcher of the port, paper mode: SFPL against SFLv2.
+"""Evaluation launcher of the port: LM mode (default) and paper mode (SFPL
+against SFLv2).
 
+    PYTHONPATH=src python -m repro_torch.launch.eval --arch qwen3-8b \
+        [--batches 8] [--ckpt out.npz] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.eval --paper \
         [--clients 8] [--epochs 4] [--alpha 1.0] [--compute-dtype bfloat16] \
         [--device cpu]
@@ -16,20 +19,46 @@ protocols (IID and non-IID batches), each scheme with the BN treatment
 it trained with (SFPL: CMSD, batch statistics; SFLv2: RMSD, aggregated
 running statistics). It runs on CUDA unless ``--device cpu`` is given.
 
-LM mode (no ``--paper``) is not ported: it needs LM training's token
-stream and checkpoints, and raises ``NotImplementedError``.
+LM mode: perplexity and token accuracy of an architecture's smoke
+config over the synthetic token stream, its parameters drawn from a
+generator seeded by 0 (``launch.train``'s default seed) and, with
+``--ckpt``, restored from a ``launch.train`` checkpoint.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
 import torch
 
-LM_LATER = ("LM evaluation is not ported yet: it comes with the "
-            "LM-training slice (ROADMAP section 1, 'LM training'); pass "
-            "--paper")
+
+def evaluate_lm(spec, cfg, params, *, batches=8, batch=8, seq=64, seed=0):
+    """Returns {loss, ppl, token_accuracy} over ``batches`` batches of the
+    synthetic stream, drawn from a generator seeded by ``seed`` on the
+    params' device. The JAX package's whisper and VLM inputs
+    (``frame_embeds``, ``vision_embeds``) have no branch here: those
+    families are not ported."""
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.models.common import softmax_cross_entropy
+    from repro_torch.tree import tree_leaves
+    model = spec.model
+    dev = tree_leaves(params)[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tot_loss, tot_acc = 0.0, 0.0
+    with torch.no_grad():
+        for _ in range(batches):
+            toks, labels = synthetic_token_stream(
+                gen, batch=batch, seq_len=seq, vocab=cfg.vocab_size)
+            logits, _ = model.forward(params, {"tokens": toks}, cfg,
+                                      training=False)
+            tot_loss += float(softmax_cross_entropy(logits, labels))
+            tot_acc += float((logits.argmax(-1) == labels.long())
+                             .float().mean())
+    loss = tot_loss / batches
+    return {"loss": loss, "ppl": math.exp(min(loss, 30.0)),
+            "token_accuracy": tot_acc / batches}
 
 
 def evaluate_paper(*, num_clients=8, epochs=4, batch_size=8, sharded=False,
@@ -168,12 +197,10 @@ def _placed_epoch(scheme, group, st, data, split, opt, *, num_clients,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper", action="store_true",
-                    help="SFPL vs SFLv2 at matched fleet size (the only "
-                         "mode ported so far)")
-    ap.add_argument("--arch", default="qwen3-8b", help="LM mode (not "
-                    "ported)")
+                    help="SFPL vs SFLv2 at matched fleet size")
+    ap.add_argument("--arch", default="qwen3-8b", help="LM mode")
     ap.add_argument("--batches", type=int, default=8, help="LM mode")
-    ap.add_argument("--ckpt", help="LM mode")
+    ap.add_argument("--ckpt", help="LM mode: a launch.train --ckpt file")
     ap.add_argument("--sharded", action="store_true",
                     help="run both schemes over the process group's ranks")
     ap.add_argument("--clients", type=int, default=8)
@@ -206,7 +233,7 @@ def main(argv=None):
                     help="default: cuda (raises without CUDA)")
     args = ap.parse_args(argv)
     if not args.paper:
-        raise NotImplementedError(LM_LATER)
+        return _main_lm(args)
     rep = evaluate_paper(num_clients=args.clients, epochs=args.epochs,
                          sharded=args.sharded, alpha=args.alpha,
                          pipeline=args.pipeline, submesh=args.submesh,
@@ -224,6 +251,23 @@ def main(argv=None):
         r = rep[scheme]
         print(f"  {scheme:5s}  IID test {r['iid']['accuracy']:5.1f}%  "
               f"non-IID test {r['noniid']['accuracy']:5.1f}%")
+
+
+def _main_lm(args):
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    spec = get_arch(args.arch)
+    cfg = spec.make_smoke_config()
+    dev = resolve_device(args.device)
+    params = spec.model.init(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    if args.ckpt:
+        params, step = restore_checkpoint(args.ckpt, params)
+        print(f"restored step {step}")
+    m = evaluate_lm(spec, cfg, params, batches=args.batches)
+    print(f"{args.arch}: loss {m['loss']:.4f}  ppl {m['ppl']:.1f}  "
+          f"token-acc {m['token_accuracy']:.3f}")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,26 @@
-"""Shared model pieces: the compute policy, the loss and accuracy, the
-transformer config, and the sharding constraints (identities on one
-device)."""
+"""Shared model pieces: the compute policy, the losses and accuracy, the
+transformer config, rematerialisation, and the sharding constraints
+(identities on one device)."""
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import tree_leaves
 
+logger = logging.getLogger(__name__)
+
 IGNORE_LABEL = -100
+
+# Read once at import time (an explicit keyword default), not inside the
+# loss body, as the JAX package does.
+DEFAULT_CE_CHUNKS = int(os.environ.get("REPRO_CE_CHUNKS", "8"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +81,52 @@ def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL,
     return loss.sum() / valid_count(valid, reduce)
 
 
+def chunked_lm_loss(hidden, labels, unembed_fn, *, chunks=DEFAULT_CE_CHUNKS,
+                    ignore=IGNORE_LABEL):
+    """Cross-entropy over a large vocab without holding the full logits.
+
+    ``hidden``: (B, S, d) final-norm output; ``unembed_fn(x) -> logits``.
+    The sequence axis is split into ``chunks`` (default
+    ``DEFAULT_CE_CHUNKS``, the ``REPRO_CE_CHUNKS`` env value at import
+    time; reduced to the largest divisor of S at most ``chunks``, with a
+    warning); each chunk's logits and loss run under
+    ``torch.utils.checkpoint``, so the backward recomputes one chunk's
+    logits at a time — peak logits memory drops by ~``chunks``x. Mean
+    over the non-ignored labels.
+    """
+    if chunks is None:
+        chunks = DEFAULT_CE_CHUNKS
+    B, S, d = hidden.shape
+    requested = chunks
+    while chunks > 1 and S % chunks != 0:
+        chunks -= 1
+    if chunks != requested:
+        logger.warning(
+            "chunked_lm_loss: seq len %d not divisible by chunks=%d; "
+            "reduced to %d", S, requested, chunks)
+
+    def one(xc, lc):
+        logits = unembed_fn(xc).float()
+        valid = lc != ignore
+        safe = torch.where(valid, lc, torch.zeros_like(lc))
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, safe[..., None])[..., 0]
+        loss = torch.where(valid, lse - ll, torch.zeros_like(lse))
+        return loss.sum(), valid.sum()
+
+    labels = labels.long()
+    Sc = S // chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(chunks):
+        t, c = checkpoint(one, hidden[:, i * Sc:(i + 1) * Sc],
+                          labels[:, i * Sc:(i + 1) * Sc],
+                          use_reentrant=False)
+        total = total + t
+        count = count + c
+    return total / count.clamp_min(1)
+
+
 def accuracy_from_logits(logits, labels, *, ignore=IGNORE_LABEL):
     labels = labels.long()
     valid = labels != ignore
@@ -126,9 +181,9 @@ class TransformerConfig:
         """Layers per stacked group (lcm of the layer-pattern periods)."""
         g = 1
         if self.num_experts and self.moe_layer_period > 1:
-            g = math.lcm(g, self.moe_layer_period)
+            g = _lcm(g, self.moe_layer_period)
         if self.global_attn_period:
-            g = math.lcm(g, self.global_attn_period)
+            g = _lcm(g, self.global_attn_period)
         return g
 
     def layer_kind(self, idx: int) -> dict:
@@ -147,6 +202,19 @@ class TransformerConfig:
 
     def cdtype(self):
         return getattr(torch, self.compute_dtype)
+
+
+def _lcm(a, b):
+    return a * b // math.gcd(a, b)
+
+
+def maybe_remat(fn, enabled):
+    """``fn`` under ``torch.utils.checkpoint`` when ``enabled``: its
+    activations are recomputed in the backward instead of stored (the JAX
+    package's ``jax.checkpoint`` with nothing saveable)."""
+    if not enabled:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def constrain_act(x, cfg, kind="residual"):

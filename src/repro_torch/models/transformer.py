@@ -1,13 +1,14 @@
 """Decoder-only transformer family: the dense GQA architectures (qwen3-8b
-and its kin), for prefill and cached decode.
+and its kin), for training (``loss_fn``, SFPL's ``collector_perm``),
+prefill and cached decode.
 
 Layers are grouped into units of ``cfg.group_size`` (the lcm of the
 MoE-period and attention-pattern period); per-group parameters are stacked
 on a leading ``num_groups`` axis exactly as the JAX package stacks them, so
 parameter trees carry across (``repro_torch.convert``). The JAX package's
-``lax.scan`` over the groups is a Python loop here. MoE layers, the VLM
-stub frontend and SFPL LM training (``collector_perm``) belong to later
-slices of the port and raise ``NotImplementedError``.
+``lax.scan`` over the groups is a Python loop here. MoE layers and the VLM
+stub frontend belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import TransformerConfig, constrain_act
+from repro_torch.models.common import (TransformerConfig, chunked_lm_loss,
+                                       constrain_act, maybe_remat)
 from repro_torch.nn.attention import (
     AttnConfig, attention_init, attention_apply, attention_decode,
     init_kv_cache)
@@ -159,19 +161,22 @@ def unembed(params, x, cfg: TransformerConfig):
 
 
 def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
-            collector_perm=None, return_hidden=False, last_token_only=False):
+            collector_perm=None, cut_groups=1, return_hidden=False,
+            last_token_only=False):
     """batch_in: {tokens (B, S) [, positions (B, S)]} -> (logits f32, aux).
 
-    ``aux`` is the MoE router loss, 0 for the dense layers of this slice;
-    ``training`` changes no value here (no dropout, and rematerialisation
-    is a JAX memory policy). ``last_token_only`` keeps the final position
-    (serving prefill); ``return_hidden`` returns the final-norm output
-    instead of logits."""
-    del training
-    if collector_perm is not None:
-        raise NotImplementedError(
-            "collector_perm (SFPL LM training) belongs to the LM-training "
-            "slice of the port")
+    ``collector_perm``: SFPL's global-collector shuffle for split-LM
+    training — a permutation of the batch applied to the smashed data
+    after the first ``cut_groups`` layer groups (the client-side model
+    portion); autograd's backward of the row gather is the de-shuffling
+    scatter, Algorithm 1's gradient routing. Labels must be permuted by
+    the caller (see ``core.split_lm.sfpl_lm_loss``).
+
+    ``aux`` is the MoE router loss, 0 for the dense layers of this slice.
+    With ``cfg.remat and training`` each layer group (each layer, when a
+    group holds several) is recomputed in the backward instead of stored.
+    ``last_token_only`` keeps the final position (serving prefill);
+    ``return_hidden`` returns the final-norm output instead of logits."""
     tokens = batch_in["tokens"]
     B, S = tokens.shape
     x = constrain_act(embed_inputs(params, batch_in, cfg), cfg)
@@ -179,11 +184,31 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     if positions is None:
         positions = _default_positions(cfg, B, S, tokens.device)
     G = cfg.group_size
-    for g in range(cfg.num_layers // G):
+
+    def group_fn(x, g):
         for p in range(G):
-            x = _layer_apply(_layer(params, g, p), x, cfg, cfg.layer_kind(p),
-                             positions)
-        x = constrain_act(x, cfg)
+            f = lambda x_, g_, p=p: _layer_apply(
+                _layer(params, g_, p), x_, cfg, cfg.layer_kind(p), positions)
+            # per-layer remat inside multi-layer groups
+            x = maybe_remat(f, cfg.remat and training and G > 1)(x, g)
+        return constrain_act(x, cfg)
+
+    # one checkpoint a group when G == 1: nesting both double-recomputes
+    body = maybe_remat(group_fn, cfg.remat and training and G == 1)
+
+    def run_groups(x, lo, hi):
+        for g in range(lo, hi):
+            x = body(x, g)
+        return x
+
+    num_groups = cfg.num_layers // G
+    if collector_perm is not None:
+        # client-side portion -> smashed data -> global collector shuffle
+        x = run_groups(x, 0, cut_groups)
+        x = x.index_select(0, collector_perm.to(x.device))
+        x = run_groups(x, cut_groups, num_groups)
+    else:
+        x = run_groups(x, 0, num_groups)
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
     if last_token_only:
@@ -192,6 +217,18 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     if return_hidden:
         return x, aux
     return unembed(params, x, cfg).float(), aux
+
+
+def loss_fn(params, batch_in, cfg: TransformerConfig, *, training=True):
+    """Mean next-token cross-entropy of ``batch_in["labels"]`` through
+    ``chunked_lm_loss``, plus the router loss; returns ``(loss, {"xent",
+    "aux"})``."""
+    hidden, aux_loss = forward(params, batch_in, cfg, training=training,
+                               return_hidden=True)
+    loss = chunked_lm_loss(hidden, batch_in["labels"],
+                           lambda xc: unembed(params, xc, cfg))
+    return loss + cfg.router_aux_coef * aux_loss, {"xent": loss,
+                                                   "aux": aux_loss}
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """xLSTM (arXiv:2405.04517): mLSTM + sLSTM residual blocks, 7:1 ratio, for
-prefill and cached decode.
+training (``loss_fn``), prefill and cached decode.
 
 * mLSTM: the chunkwise-parallel form. Within a chunk of ``chunk_len`` the
   stabilized quadratic form runs as f32 matmuls; across chunks a (C, n, m)
@@ -14,7 +14,10 @@ Blocks come in groups of ``slstm_every`` (mLSTM blocks, then one sLSTM).
 Per-group parameters are stacked on a leading ``num_groups`` axis as the
 JAX package stacks them, so parameter trees carry across
 (``repro_torch.convert``); its ``lax.scan`` over the groups is a Python
-loop here. Training (``loss_fn``) belongs to the LM-training slice.
+loop here, and its per-block rematerialisation in training (``remat``, a
+memory policy that changes no value) is not ported. As in the JAX
+package, the xLSTM takes no ``collector_perm``: SFPL LM training runs its
+plain loss (``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
-from repro_torch.models.common import constrain_act, constrain_dims
+from repro_torch.models.common import (chunked_lm_loss, constrain_act,
+                                       constrain_dims)
 from repro_torch.nn.init import normal_init, zeros
 from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
@@ -477,9 +481,13 @@ def forward(params, batch_in, cfg: XLSTMConfig, *, training=False,
 
 
 def loss_fn(params, batch_in, cfg: XLSTMConfig, *, training=True):
-    raise NotImplementedError(
-        "xLSTM training (loss_fn, chunked_lm_loss) belongs to the "
-        "LM-training slice of the port")
+    """Mean next-token cross-entropy of ``batch_in["labels"]`` through
+    ``chunked_lm_loss``; returns ``(loss, {"xent"})``."""
+    hidden, _ = forward(params, batch_in, cfg, training=training,
+                        return_hidden=True)
+    loss = chunked_lm_loss(hidden, batch_in["labels"],
+                           lambda xc: unembed(params, xc, cfg))
+    return loss, {"xent": loss}
 
 
 def init_decode_state(cfg: XLSTMConfig, batch, max_len=None, *, dtype=None,

@@ -1,2 +1,2 @@
-from repro_torch.optim.sgd import sgd_momentum
+from repro_torch.optim.sgd import adamw, sgd_momentum
 from repro_torch.optim.schedule import constant_lr, cosine_lr, multistep_lr

@@ -1,9 +1,11 @@
 """The port stands alone: importing every module of ``repro_torch``,
 running a one-step SFPL epoch, single-device and sharded (world size 1,
 int8 wire), a qwen3-8b smoke prefill through the kernel attention path, an
-xlstm-1.3b smoke prefill through the sLSTM kernel path, and a 3-token
-``serve`` of each loads neither ``jax`` nor ``repro``; and the entry points
-run on CUDA by default, raising when it is absent."""
+xlstm-1.3b smoke prefill through the sLSTM kernel path, a 3-token
+``serve`` of each, a fault plan's draw, a train-state checkpoint round
+trip, ``retry_call``, ``multihost.host_value`` and one SFPL LM train
+step loads neither ``jax`` nor ``repro``; and the entry points run on CUDA
+by default, raising when it is absent."""
 import os
 import subprocess
 import sys
@@ -68,6 +70,33 @@ assert x_logits.shape == (2, 1, x_cfg.vocab_size)
 assert bool(torch.isfinite(x_logits).all())
 out = serve("xlstm-1.3b", batch=2, prompt_len=4, gen=3, device="cpu")
 assert out.shape == (2, 3)
+
+import os, tempfile
+from repro_torch import checkpoint as CK
+from repro_torch.core.faults import FaultPlan, ensure_group_survivor
+from repro_torch.core.retry import retry_call
+from repro_torch.core.split_lm import make_collector_perm
+from repro_torch.data.tokens import synthetic_token_stream
+from repro_torch.launch import multihost
+from repro_torch.launch.steps import make_train_step
+from repro_torch.optim import adamw
+mask, _ = FaultPlan(n, seed=1, drop_rate=0.5).participation(0)
+mask, _ = ensure_group_survivor(mask, n)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "st.npz")
+    CK.save_train_state(path, st, gen=g, epoch=1)
+    st2, _, ep = CK.restore_train_state(path, st)
+    assert ep == 1
+assert multihost.host_value(losses).shape == (1,)
+assert retry_call(lambda: 3, attempts=1) == 3
+opt = adamw(1e-3)
+step = make_train_step(spec, spec.make_smoke_config(), opt, sfpl=True)
+toks, labels = synthetic_token_stream(g, batch=2, seq_len=8, vocab=512)
+lm_params = spec.model.init(g, spec.make_smoke_config())
+lm_params, _, _, loss = step(lm_params, opt.init(lm_params), 0,
+                             {"tokens": toks, "labels": labels,
+                              "perm": make_collector_perm(g, 2)})
+assert bool(torch.isfinite(loss))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("MODULES", len(names))
@@ -104,11 +133,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_later_slice_knobs_raise_not_implemented():
+    """The fault knobs, checkpoints and LM mode are ported; what still
+    raises: an architecture the port does not register yet (the
+    registry's ``KeyError``), and fault rates on the SFLv2 scheme (the
+    JAX launcher's ``ValueError``)."""
     from repro_torch.launch.train import main
-    for argv in (["--paper", "--ckpt", "s.npz"], ["--paper", "--drop-rate",
-                                                  "0.2"], []):
-        with pytest.raises(NotImplementedError, match="slice"):
-            main(argv + ["--device", "cpu", "--epochs", "1"])
+    with pytest.raises(KeyError, match="not yet ported"):
+        main(["--arch", "llama4-scout-17b-a16e", "--device", "cpu",
+              "--steps", "1"])
+    with pytest.raises(ValueError, match="requires --scheme sfpl"):
+        main(["--paper", "--scheme", "sflv2", "--drop-rate", "0.2",
+              "--device", "cpu", "--epochs", "1"])
 
 
 @pytest.mark.parametrize("argv", [

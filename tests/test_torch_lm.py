@@ -394,8 +394,9 @@ def test_continuous_batcher_samples_at_jax_temperature(temps):
 
 
 def test_later_slices_raise_naming_them():
-    """MoE layers, the VLM frontend (M-RoPE, vision tokens) and SFPL LM
-    training are later slices: each raises, naming its slice."""
+    """MoE layers and the VLM frontend (M-RoPE, vision tokens) are later
+    slices: each raises, naming its slice. SFPL LM training is ported: an
+    identity ``collector_perm`` gives the plain forward."""
     from repro_torch.models import transformer as T
     gen = torch.Generator().manual_seed(0)
     small = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
@@ -405,9 +406,10 @@ def test_later_slices_raise_naming_them():
     cfg = TransformerConfig(**small)
     params = T.init(gen, cfg)
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        T.forward(params, {"tokens": toks}, cfg,
-                  collector_perm=torch.arange(1))
+    plain, _ = T.forward(params, {"tokens": toks}, cfg)
+    cut, _ = T.forward(params, {"tokens": toks}, cfg,
+                       collector_perm=torch.arange(1))
+    assert torch.equal(plain, cut)
     for kw in (dict(mrope_sections=(2, 3, 3)), dict(vision_tokens=2)):
         with pytest.raises(NotImplementedError, match="VLM slice"):
             T.forward(params, {"tokens": toks},

@@ -367,7 +367,7 @@ def test_config_takes_the_jax_kernel_names():
 
 def test_full_config_matches_jax_and_training_raises(smoke):
     """xlstm-1.3b's full config carries the JAX package's fields; training
-    (``loss_fn``) names the LM-training slice."""
+    (``loss_fn``, ported) gives the JAX package's loss."""
     jcfg = j_get_arch("xlstm-1.3b").make_config()
     tcfg = get_arch("xlstm-1.3b").make_config()
     ours, theirs = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
@@ -376,10 +376,14 @@ def test_full_config_matches_jax_and_training_raises(smoke):
     assert (tcfg.num_layers // tcfg.slstm_every, tcfg.d_inner,
             tcfg.head_dim) == (6, 4096, 1024)
     _, scfg, params, toks = smoke
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        TX.loss_fn(from_jax_numpy(params),
-                   {"tokens": torch.from_numpy(toks),
-                    "labels": torch.from_numpy(toks)}, _port_cfg(scfg))
+    want, _ = JX.loss_fn(params, {"tokens": jnp.asarray(toks),
+                                  "labels": jnp.asarray(toks)}, scfg)
+    got, aux = TX.loss_fn(from_jax_numpy(params),
+                          {"tokens": torch.from_numpy(toks),
+                           "labels": torch.from_numpy(toks)}, _port_cfg(scfg))
+    assert set(aux) == {"xent"}
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_serve_runs_the_xlstm_on_the_cpu():
