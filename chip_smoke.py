@@ -18,7 +18,7 @@ head_dim 256 (phase 14), 2-layer f32 checks as phase 9's and a 2-layer
 bf16 prefill against the plain attention path, with minitron-8b's and
 phi3-medium-14b's at D 128 (phase 15), and serving (phase 16); then the
 paper's comparison: ``launch.eval.evaluate_paper`` at ResNet-56 width, 100
-clients, bf16, 2 epochs, with K1-K3 counted and seen by the profiler
+clients, bf16, 1 epoch, with K1-K3 counted and seen by the profiler
 (phase 17), the double-buffered collector on a world-size-1 NCCL group,
 sub-mesh at alpha 1.0 and the whole-mesh fallback at 0.5, at the exact
 and the int8 wire, each equal to the sync exchange's losses and through
@@ -34,7 +34,18 @@ logits' and the SFPL loss checks, and xlstm-1.3b at 1 group, each loss
 falling (phase 21); and the entry points ``launch.train --paper`` with
 faults, ``--ckpt`` and ``--resume``, ``launch.train --arch qwen3-8b
 --ckpt`` and ``launch.eval --arch qwen3-8b --ckpt``, which must beat the
-untrained init (phase 22). Each phase prints its seconds. It
+untrained init (phase 22); then the MoE and VLM transformers at full
+width: llama4-scout-17b-a16e at 4 layers (one iRoPE group), its prefill
+through K7 at 40/8 heads with each MoE layer's dropped fraction, f32
+checks of K7 against the plain attention path and of cached decode
+against the forward (at a capacity that drops no token), a bf16 prefill
+with a binding 128-token window, ``make_decode_step``, the
+``ContinuousBatcher`` and ``serve()`` (phase 23); llama4-maverick-400b-a17b
+at 4 layers in bf16, its prefill and a bf16 check (phase 24); qwen2-vl-7b
+at full depth, its prefill with 1,024 vision embeddings through K7 at
+28/4 heads, a 2-layer f32 check of K7 against its plain version in the
+same forward, and ``serve(smoke=False)`` (phase 25). Each phase prints
+its seconds. It
 prints, as its last line, ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
@@ -115,8 +126,12 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
     "slstm_scan": "src/repro/kernels/slstm_scan/kernel.py:73",
 }
-# K7 at head_dim 256 (gemma-7b) has a row of its own in the kernels line
-REPLACES["flash_attention_d256"] = REPLACES["flash_attention"]
+# K7 at head_dim 256 (gemma-7b), at llama4's 40/8 heads and at qwen2-vl's
+# 28/4 each have a row of their own in the kernels line
+K7_ROWS = ("flash_attention_d256", "flash_attention_llama4",
+           "flash_attention_qwen2vl")
+for _row in K7_ROWS:
+    REPLACES[_row] = REPLACES["flash_attention"]
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bn_act": ("cuda", bn_k.SOURCE),
          "xent_fwd": ("triton", xent_k.SOURCE),
@@ -128,7 +143,8 @@ ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "rmsnorm": ("triton", rms_k.SOURCE),
          "flash_attention": ("cuda", flash_k.SOURCE),
          "slstm_scan": ("cuda", slstm_k.SOURCE)}
-ROUTE["flash_attention_d256"] = ROUTE["flash_attention"]
+for _row in K7_ROWS:
+    ROUTE[_row] = ROUTE["flash_attention"]
 # the kernels of the single-device path (phases 3-5); the sharded path
 # (phase 6) adds the other four
 SINGLE_DEVICE = ("collector_permute", "bn_act", "xent_fwd", "xent_bwd")
@@ -700,7 +716,7 @@ def kernels_lm():
     # its 128-row and 128-key tiles, both GQA groupings, both masks
     worst = 0.0
     for s in (100, 127, 128, 129, 255, 1000):
-        for h, kh in ((32, 8), (8, 1)):
+        for h, kh in ((32, 8), (8, 1), (40, 8), (28, 4)):
             for causal in (True, False):
                 for window in (None, 64):
                     worst = max(worst, check_flash(
@@ -708,9 +724,29 @@ def kernels_lm():
                         time=False))
     worst = max(worst, check_flash(2, 1000, 32, 8, 128, torch.bfloat16,
                                    time=False, packed=True))
+    for h, kh in ((40, 8), (28, 4)):
+        worst = max(worst, check_flash(2, 1000, h, kh, 128, torch.bfloat16,
+                                       time=False, packed=True))
     print(f"flash_attention bf16 D 128 grid (S 100/127/128/129/255/1000, "
-          f"H/K 32/8 8/1, causal or not, window none/64, and a packed-qkv "
-          f"view at S 1000): max err {worst:.3e} (tol 2e-2)")
+          f"H/K 32/8 8/1 40/8 28/4, causal or not, window none/64, and "
+          f"packed-qkv views at S 1000): max err {worst:.3e} (tol 2e-2)")
+    # llama4's prefill attention (40 q heads over 8, group 5; its local
+    # window of 8192 does not bind at S 4096) and qwen2-vl's (28 over 4,
+    # group 7), each at the prefill's shape beside SDPA (phases 23, 25),
+    # and both groupings in f32 on the plain-FMA kernel with a window
+    check_flash(LM_BATCH, LM_SEQ, 40, 8, 128, torch.bfloat16, library=True)
+    main["flash_attention_llama4"] = RESULTS[-1]
+    check_flash(LM_BATCH, LM_SEQ, 28, 4, 128, torch.bfloat16, library=True)
+    main["flash_attention_qwen2vl"] = RESULTS[-1]
+    worst = 0.0
+    for h, kh in ((40, 8), (28, 4)):
+        for s in (31, 200):
+            for window in (None, 16):
+                worst = max(worst, check_flash(2, s, h, kh, 128,
+                                               torch.float32, window=window,
+                                               time=False))
+    print(f"flash_attention f32 D 128 at H/K 40/8 and 28/4 (S 31/200, "
+          f"window none/16): max err {worst:.3e} (tol 2e-3)")
     # head_dim 256 on the Hopper kernel (64-key K / V tiles): gemma-7b's
     # prefill attention (16 heads, MHA) at batch 1 and at the prefill's
     # shape (phase 14), and recurrentgemma-9b's local attention (16 heads
@@ -1320,27 +1356,78 @@ def lm_init(cfg, seed, arch="qwen3-8b"):
                              cfg)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    routers = "; the routers f32" if getattr(cfg, "num_experts", 0) else ""
     print(f"init {cfg.name} ({cfg.num_layers} layers): {n / 1e9:.3f} B "
-          f"params, {n * 4 / 1e9:.1f} GB f32, on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"params, {nbytes / 1e9:.1f} GB ({cfg.param_dtype}{routers}), on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
     return params
 
 
-def full_prefill(arch):
-    """``arch`` at full width, f32 parameters drawn on the card from seed
-    0, bf16 compute, attention through K7: one cold and two warm prefills
-    through ``make_prefill_step`` at B LM_BATCH x S LM_SEQ (wall, tokens/s,
-    peak memory), one K7 launch a layer, finite last-token logits, and a
-    profile of a warm prefill. Returns (spec, cfg, params, tokens, logits,
-    launches, profile by kernel)."""
+class Routes:
+    """While active, records each MoE layer call's expert ids and dropped
+    fraction (it wraps ``models.transformer.moe_apply``). Top-1 routing is
+    an argmax: two paths whose hidden states differ by rounding can send a
+    near-tied token to another expert, whose output then differs by far
+    more than rounding, so the checks compare the positions both runs
+    routed alike and count the others."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TM
+        self.ids, self.dropped = [], []
+        self._mod, self._orig = TM, TM.moe_apply
+
+        def recorded(*args, **kw):
+            y, aux = self._orig(*args, **kw)
+            self.ids.append(aux["expert_id"])
+            self.dropped.append(aux["dropped_frac"])
+            return y, aux
+        TM.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_apply = self._orig
+
+    def by_position(self, b, s, decode=False):
+        """The ids as (MoE layers, B, S): a forward's calls each hold
+        (B * S,) ids; a decode's (B,) ids a layer a step."""
+        ids = torch.stack(self.ids)
+        if decode:
+            return ids.reshape(s, -1, b).permute(1, 2, 0)
+        return ids.reshape(-1, b, s)
+
+
+def routed_alike(a, b, bsz, s, decode_b=False):
+    """(B, S) mask of the positions that ``Routes`` ``a`` and ``b`` sent to
+    the same expert in every MoE layer (``decode_b``: ``b`` recorded a
+    decode), and the count of the others."""
+    same = (a.by_position(bsz, s) == b.by_position(bsz, s, decode_b)).all(0)
+    return same, int((~same).sum())
+
+
+def full_prefill(arch, **overrides):
+    """``arch`` at full width (``overrides``: a depth cut), its parameters
+    (f32, or its config's dtype) drawn on the card from seed 0, bf16
+    compute, attention through K7: one cold and two warm prefills through
+    ``make_prefill_step`` at B LM_BATCH x S LM_SEQ (wall, tokens/s, peak
+    memory), one K7 launch a layer, finite last-token logits, and a
+    profile of a warm prefill. A VLM's vision embeddings are drawn from
+    the tokens' generator; an MoE model prints the fraction of tokens each
+    MoE layer dropped past capacity. Returns (spec, cfg, params, tokens,
+    logits, launches, profile by kernel)."""
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn.moe import capacity
     spec = get_arch(arch)
-    cfg = spec.make_config(attention_impl="kernel")
+    cfg = spec.make_config(attention_impl="kernel", **overrides)
     params = lm_init(cfg, seed=0, arch=arch)
     gen = torch.Generator(device=DEV).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
                          generator=gen, device=DEV)
     batch = {"tokens": toks}
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.randn(
+            (LM_BATCH, cfg.vision_tokens, cfg.d_model), generator=gen,
+            device=DEV)
     prefill = make_prefill_step(spec, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1361,12 +1448,28 @@ def full_prefill(arch):
     print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
           f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # the stacked (num_groups, in, out) weights of the layers
+    # the stacked (num_groups, in, out) weights of the layers (routers and
+    # shared experts included: every token goes through them)
     dense = sum(a.numel() for a in tree_leaves(params["layers"])
                 if a.dim() == 3)
     head = 2 * LM_BATCH * cfg.d_model * cfg.vocab_size
     print(f"dense matmul FLOPs per prefill: {2 * n_tok * dense:.3e} in "
           f"the layers, {head:.3e} in the last-token unembedding")
+    n_moe = sum(cfg.layer_kind(p)["moe"] for p in range(cfg.group_size)) \
+        * (cfg.num_layers // cfg.group_size)
+    if n_moe:
+        # the experts' three products over their (E, C) slots, the padded
+        # slots included (the work the batched products do)
+        c = capacity(n_tok, cfg.num_experts, cfg.capacity_factor)
+        moe = n_moe * 3 * 2 * cfg.num_experts * c * cfg.d_model * cfg.d_ff
+        print(f"expert FLOPs per prefill: {moe:.3e} ({n_moe} MoE layers, "
+              f"{cfg.num_experts} experts x capacity {c} slots of d "
+              f"{cfg.d_model} -> d_ff {cfg.d_ff})")
+        with Routes() as r:
+            prefill(params, batch)
+        drops = [round(float(v), 4) for v in r.dropped]
+        print(f"dropped fraction a MoE layer at capacity factor "
+              f"{cfg.capacity_factor}: {drops}")
     print(f"launches in one prefill: flash_attention "
           f"{launches['flash_attention']}, rmsnorm {launches['rmsnorm']} "
           f"(no model calls K6, as in the JAX package)")
@@ -1841,14 +1944,17 @@ def gemma_serving():
 
 def paper_comparison(smi):
     phase("17. launch.eval.evaluate_paper: SFPL against SFLv2, ResNet-56 "
-          "width 16, 100 clients x batch 8, 32x32, bf16, kernels on, 2 "
-          "epochs, one device")
+          "width 16, 100 clients x batch 8, 32x32, bf16, kernels on, 1 "
+          "epoch, one device")
     print(f"card: {smi} (every time below was taken on it)")
     from repro_torch.launch.eval import evaluate_paper
     kw = dict(depth=56, width=WIDTH, hw=HW, batch_size=BATCH,
               compute_dtype="bfloat16", use_kernel=True)
     K.reset_launches()
-    rep = evaluate_paper(num_clients=CLIENTS, epochs=2, **kw)
+    # one epoch: SFLv2's 400 sequential, host-bound steps are the longest
+    # part of the script (two epochs took 122-219 s for the phase on
+    # H100 machines, the host's speed setting the time)
+    rep = evaluate_paper(num_clients=CLIENTS, epochs=1, **kw)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     for scheme in ("sfpl", "sflv2"):
@@ -2269,6 +2375,292 @@ def training_entry_points(smi):
                              f"beat the untrained init ({before['loss']})")
 
 
+# --------------------------------------------------------------------------
+# phases 23-25: the MoE transformers llama4-scout and llama4-maverick, and
+# the VLM backbone qwen2-vl, at full width
+
+# one iRoPE group (3 local layers + 1 global): llama4's full 48 layers hold
+# 109 B (scout) and 401 B (maverick) parameters, past one card
+MOE_LAYERS = 4
+
+
+def compare_routed(got, want, mask, tol, what, scale=None):
+    """``got`` against ``want`` (B, S, V) at the positions of ``mask``:
+    within ``tol`` abs + rel, or, given ``scale`` (bf16), within ``tol *
+    scale`` of max |logit|. Raises past it; returns the max |diff|."""
+    g, w = got[mask], want[mask]
+    if scale is None:
+        err, ok = compare(g, w, tol, tol)
+    else:
+        err = float((g - w).abs().max())
+        ok = err <= tol * scale
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: max |diff| {err} (tol {tol}"
+                             f"{'' if scale is None else ' of ' + str(scale)}"
+                             f")")
+    return err
+
+
+def moe_checks(spec, cfg, params):
+    """llama4-scout's 4 layers, f32 compute, B 2 x S 200, on the phase's
+    parameters: K7's prefill against the plain attention path, then cached
+    decode against the forward at capacity factor 16, where no token can be
+    dropped (the forward counts capacity over B * S tokens, decode over B:
+    with drops the reference's own decode and forward differ)."""
+    import dataclasses
+    b, s = 2, 200
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                attention_impl="xla")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(3))
+    batch = {"tokens": toks}
+    K.reset_launches()
+    with Routes() as rk:
+        full_k, _ = spec.model.forward(params, batch, dataclasses.replace(
+            cfg32, attention_impl="kernel"))
+    n_k7 = K.LAUNCHES["flash_attention"]
+    with Routes() as rx:
+        full_x, _ = spec.model.forward(params, batch, cfg32)
+    same, moved = routed_alike(rk, rx, b, s)
+    err = compare_routed(full_k, full_x, same, 2e-3, "K7 prefill (f32)")
+    print(f"prefill logits (B {b}, S {s}, f32), K7 against plain: max "
+          f"|diff| {err:.3e} over the {int(same.sum())} positions routed "
+          f"alike (tol 2e-3; {moved} routed otherwise; {n_k7} K7 "
+          f"launches)")
+    if n_k7 != cfg.num_layers or moved > s // 20:
+        raise AssertionError(f"{n_k7} K7 launches, {moved} positions "
+                             f"routed otherwise")
+    del full_k
+    wide = dataclasses.replace(cfg32, capacity_factor=float(cfg.num_experts))
+    with Routes() as rf:
+        fwd, _ = spec.model.forward(params, batch, wide)
+    state = spec.model.init_decode_state(wide, b, s, dtype=torch.float32,
+                                         device=DEV)
+    dec = []
+    t0 = time.perf_counter()
+    with Routes() as rd:
+        for t in range(s):
+            lg, state = spec.model.decode_step(params, state,
+                                               toks[:, t:t + 1], wide,
+                                               cur_pos=t)
+            dec.append(lg)
+        dec = torch.cat(dec, dim=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / s * 1e3
+    dropped = max(float(v) for v in rf.dropped + rd.dropped)
+    same, moved = routed_alike(rf, rd, b, s, decode_b=True)
+    err = compare_routed(dec, fwd, same, 2e-3, "decode against forward")
+    print(f"cached decode fed the same {s} tokens against the forward at "
+          f"capacity factor {wide.capacity_factor:g}: max |diff| {err:.3e} "
+          f"over {int(same.sum())} positions (tol 2e-3; {moved} routed "
+          f"otherwise; most dropped in a layer {dropped}); {ms:.1f} ms a "
+          f"B {b} f32 step")
+    if dropped or moved > s // 20:
+        raise AssertionError(f"decode check dropped {dropped}, {moved} "
+                             f"positions routed otherwise")
+
+
+def moe_bf16_check(spec, cfg, params, b, s, **overrides):
+    """The phase's model in bf16 (``overrides``: a binding window): the
+    prefill's logits at every position through K7 against the plain
+    attention path, within 2e-2 of max |logit| at the positions both
+    routed alike. bf16 rounding moves some near-tied tokens to another
+    expert between the two paths (2-3 % of the positions at llama4's
+    widths); those are counted, and held to 10 %: a wrong kernel would
+    move most of them."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, **overrides)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(8))
+    K.reset_launches()
+    with Routes() as rk:
+        got, _ = spec.model.forward(params, {"tokens": toks},
+                                    dataclasses.replace(
+                                        cfg, attention_impl="kernel"))
+    n_k7 = K.LAUNCHES["flash_attention"]
+    with Routes() as rx:
+        want, _ = spec.model.forward(params, {"tokens": toks},
+                                     dataclasses.replace(
+                                         cfg, attention_impl="xla"))
+    same, moved = routed_alike(rk, rx, b, s)
+    scale = float(want.abs().max())
+    err = compare_routed(got, want, same, 2e-2,
+                         f"{cfg.name} bf16 prefill through K7", scale)
+    gap = float((got - want).abs().max())
+    print(f"{cfg.name} bf16 prefill ({cfg.num_layers} layers, B {b}, S {s},"
+          f" window {cfg.sliding_window} on the local layers, every "
+          f"position), K7 against plain: max |diff| {err:.4e} over the "
+          f"{int(same.sum())} positions routed alike, of max |logit| "
+          f"{scale:.3f} ({err / scale:.3e}; bound 2e-2); {moved} of {b * s} "
+          f"routed otherwise (max |diff| there {gap:.4e}); {n_k7} K7 "
+          f"launches")
+    if n_k7 != cfg.num_layers or moved > b * s // 10:
+        raise AssertionError(f"{n_k7} K7 launches, {moved} positions "
+                             f"routed otherwise")
+    del got, want
+
+
+def moe_serving(spec, cfg, params, batch=4, prompt=64, new=32):
+    """``make_decode_step`` at ``batch`` (the prompt teacher-forced through
+    it, as ``serve()`` does) and the ``ContinuousBatcher`` with as many
+    requests, bf16 compute: ms a step, tokens/s."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.serving import ContinuousBatcher, Request
+    max_len = prompt + new
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=DEV)
+    with torch.inference_mode():
+        state = spec.model.init_decode_state(cfg, batch, max_len,
+                                             dtype=torch.float32, device=DEV)
+        decode = make_decode_step(spec, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for t in range(max_len - 1):
+            cur = prompts[:, t:t + 1] if t < prompt else out[-1]
+            logits, state = decode(params, state, cur, t)
+            if t >= prompt - 1:
+                out.append(logits[:, -1].argmax(-1, keepdim=True))
+        toks = torch.cat(out, dim=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"make_decode_step: B {batch}, prompt {prompt}, {new} new tokens "
+          f"in {wall:.2f} s ({wall / (max_len - 1) * 1e3:.1f} ms a step, "
+          f"{batch * new / wall:.1f} generated tok/s)")
+    if tuple(toks.shape) != (batch, new) or int(toks.max()) >= \
+            cfg.vocab_size:
+        raise AssertionError(f"decode gave {tuple(toks.shape)} tokens")
+    batcher = ContinuousBatcher(spec, cfg, params, num_slots=batch,
+                                max_len=max_len)
+    for row in prompts.tolist():
+        batcher.submit(Request(prompt=row, max_new_tokens=new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, ticks = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"ContinuousBatcher: {len(done)} requests through {batch} slots "
+          f"in {ticks} ticks, {wall:.2f} s ({wall / ticks * 1e3:.1f} "
+          f"ms/tick, {batch * new / wall:.1f} generated tok/s)")
+    if len(done) != batch or any(len(r.output) != new for r in done):
+        raise AssertionError("the batcher did not finish every request")
+
+
+def llama4_scout(smi):
+    phase(f"23. llama4-scout-17b-a16e at full width (d 5120, 40/8 heads, 16 "
+          f"experts on every layer, vocab 202,048), {MOE_LAYERS} layers (one "
+          f"iRoPE group), f32 params, bf16 compute, attention through K7: "
+          f"prefill B {LM_BATCH} x S {LM_SEQ}, f32 and bf16 checks, decode "
+          f"and the ContinuousBatcher")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("phases 1-22")
+    from repro_torch.launch.serve import serve
+    with torch.inference_mode():
+        spec, cfg, params, _, logits, launches, _ = full_prefill(
+            "llama4-scout-17b-a16e", num_layers=MOE_LAYERS)
+        del logits
+        moe_checks(spec, cfg, params)
+        moe_bf16_check(spec, cfg, params, 2, 512, sliding_window=128)
+    moe_serving(spec, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    out = serve("llama4-scout-17b-a16e", batch=4, prompt_len=16, gen=8)
+    if tuple(out.shape) != (4, 8):
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens")
+    return launches
+
+
+def llama4_maverick(smi):
+    phase(f"24. llama4-maverick-400b-a17b at full width (128 experts on "
+          f"alternate layers, dense d_ff 16,384), {MOE_LAYERS} layers (dense, "
+          f"MoE, dense, MoE), bf16 params: prefill B {LM_BATCH} x S "
+          f"{LM_SEQ} and a bf16 check")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("llama4-scout")
+    with torch.inference_mode():
+        spec, cfg, params, _, logits, launches, _ = full_prefill(
+            "llama4-maverick-400b-a17b", num_layers=MOE_LAYERS)
+        del logits
+        moe_bf16_check(spec, cfg, params, 1, 512)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+class plain_flash:
+    """While active, K7's wrapper runs its plain version
+    (``kernels/flash_attention/ref.py``) on CUDA tensors too."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self._ops, self._kernel = ops, ops.kernel
+
+        class Plain:
+            @staticmethod
+            def flash_attention(q, k, v, *, causal, window, scale):
+                return flash_ref.attention_ref(q, k, v, causal=causal,
+                                               window=window, scale=scale)
+        ops.kernel = Plain
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.kernel = self._kernel
+
+
+def qwen2_vl(smi):
+    phase(f"25. qwen2-vl-7b at full width and depth (28 layers, d 3584, "
+          f"28/4 heads, M-RoPE 16/24/24, 1,024 vision tokens), f32 params, "
+          f"bf16 compute: prefill B {LM_BATCH} x S {LM_SEQ} through K7, "
+          f"2-layer f32 checks, serve(smoke=False)")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("llama4-maverick")
+    import dataclasses
+    from repro_torch.launch.serve import serve
+    arch = "qwen2-vl-7b"
+    with torch.inference_mode():
+        spec, cfg, params, _, logits, launches, _ = full_prefill(arch)
+        del params, logits
+        torch.cuda.empty_cache()
+        cfg = spec.make_config(num_layers=2, compute_dtype="float32")
+        params = lm_init(cfg, seed=2, arch=arch)
+        b, s = 2, 1100
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=DEV),
+                 "vision_embeds": torch.randn((b, cfg.vision_tokens,
+                                               cfg.d_model), generator=gen,
+                                              device=DEV)}
+        kcfg = dataclasses.replace(cfg, attention_impl="kernel")
+        K.reset_launches()
+        full_k, _ = spec.model.forward(params, batch, kcfg)
+        n_k7 = K.LAUNCHES["flash_attention"]
+        with plain_flash():
+            full_p, _ = spec.model.forward(params, batch, kcfg)
+        n_plain = K.LAUNCHES["flash_attention"] - n_k7
+        err, ok = compare(full_k, full_p, 2e-3, 2e-3)
+        print(f"prefill logits (B {b}, S {s} with {cfg.vision_tokens} vision "
+              f"tokens, f32, every position), K7 against its plain version "
+              f"in the same forward: max |diff| {err:.3e} (tol 2e-3; {n_k7} "
+              f"K7 launches, {n_plain} in the plain run)")
+        if not ok or n_k7 != cfg.num_layers or n_plain:
+            raise AssertionError(f"qwen2-vl K7 prefill differs from its plain "
+                                 f"version by {err} ({n_k7} launches)")
+        full_x, _ = spec.model.forward(params, batch, cfg)
+        gap = float((full_x - full_k).abs().max())
+        print(f"the plain attention path against the kernel path: max "
+              f"|diff| {gap:.3e}, the reference's own (its xla path masks by "
+              f"the temporal M-RoPE id, so the vision block attends both "
+              f"ways; the kernel path is causal by index; ROADMAP section "
+              f"3), not an error")
+        del params, full_k, full_p, full_x
+    torch.cuda.empty_cache()
+    out = serve(arch, batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.max()) >= 152064:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens")
+    return launches
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -2292,6 +2684,9 @@ def main():
     fault_tolerant_training(smi)
     lm_training(smi)
     training_entry_points(smi)
+    launches_scout = llama4_scout(smi)
+    llama4_maverick(smi)
+    launches_vl = qwen2_vl(smi)
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}
@@ -2307,6 +2702,11 @@ def main():
     path["slstm_scan"] = "phase 11 (one xlstm-1.3b prefill)"
     launches["flash_attention_d256"] = launches_g["flash_attention"]
     path["flash_attention_d256"] = "phase 14 (one gemma-7b prefill)"
+    launches["flash_attention_llama4"] = launches_scout["flash_attention"]
+    path["flash_attention_llama4"] = ("phase 23 (one llama4-scout-17b-a16e "
+                                      "prefill, 4 layers)")
+    launches["flash_attention_qwen2vl"] = launches_vl["flash_attention"]
+    path["flash_attention_qwen2vl"] = "phase 25 (one qwen2-vl-7b prefill)"
     lines = []
     for name, row in measured.items():
         route, source = ROUTE[name]

@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` lookup.
 
 The port registers the dense transformers qwen3-8b, gemma-7b,
-minitron-8b and phi3-medium-14b, and the xLSTM family's xlstm-1.3b; the
-other architectures of the JAX package (the MoE and VLM transformers,
-recurrentgemma-9b, whisper), and ``input_specs`` (its dry-run shape
-stand-ins), come with later slices.
+minitron-8b and phi3-medium-14b, the MoE transformers
+llama4-scout-17b-a16e and llama4-maverick-400b-a17b, the VLM backbone
+qwen2-vl-7b, and the xLSTM family's xlstm-1.3b; the other architectures
+of the JAX package (recurrentgemma-9b, whisper), and ``input_specs`` (its
+dry-run shape stand-ins), come with later slices.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ def register(spec: ArchSpec):
 
 
 _ARCH_MODULES = ["qwen3_8b", "gemma_7b", "minitron_8b", "phi3_medium_14b",
-                 "xlstm_1_3b"]
+                 "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b",
+                 "qwen2_vl_7b", "xlstm_1_3b"]
 _loaded = False
 
 
@@ -58,8 +60,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown or not yet ported arch {arch_id!r} (the "
-                       f"MoE, VLM, rglru and whisper configs come with "
-                       f"ROADMAP section 1's next items); the port has "
+                       f"rglru and whisper configs come with ROADMAP "
+                       f"section 1's next items); the port has "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 

@@ -9,9 +9,11 @@ kw)``. A conv kernel is the ``w`` leaf of a conv layer (``conv1``,
 dims or 5 with a leading client axis. Every other leaf carries across as
 it is: dense ``w`` leaves, and the xLSTM's block-diagonal ``wq`` / ``wk``
 / ``wv`` weights, whose ``(num_groups, blocks, 4, 4)`` leaves have 4 dims
-but are no conv. That holds for the momentum leaves of an optimizer state
-too, which mirror the params. ``to_numpy(from_jax_numpy(t))`` gives back
-``t`` bit for bit.
+but are no conv, nor are the MoE experts' ``wi`` / ``wg`` / ``wo``. That
+holds for the momentum leaves of an optimizer state too, which mirror the
+params. A bf16 leaf (llama4-maverick's parameters; numpy's bf16 is
+``ml_dtypes``') carries its bits across. ``to_numpy(from_jax_numpy(t))``
+gives back ``t`` bit for bit.
 """
 from __future__ import annotations
 
@@ -46,14 +48,23 @@ def from_jax_numpy(tree, device="cpu"):
             lead = a.ndim - 4            # 1 with a leading client axis
             a = a.transpose(tuple(range(lead)) + tuple(
                 lead + i for i in (3, 2, 0, 1)))
-        return torch.from_numpy(np.array(a, order="C")).to(device)
+        a = np.array(a, order="C")
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
     return _walk(tree, conv)
 
 
 def to_numpy(tree):
     """The port's tensors -> nested dict of numpy arrays in JAX layout."""
     def conv(path, t):
-        a = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:     # numpy has no bf16 of its own
+            import ml_dtypes
+            a = t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            a = t.numpy()
         if _is_conv(path, a):
             lead = a.ndim - 4
             a = a.transpose(tuple(range(lead)) + tuple(

@@ -27,3 +27,11 @@ def synthetic_token_stream(gen, *, batch, seq_len, vocab, order=2,
     if device is not None:
         toks = toks.to(device)
     return toks[:, :-1], toks[:, 1:]
+
+
+def vision_embeds(gen, batch, cfg):
+    """The VLM stub frontend's patch embeddings: standard normal (batch,
+    cfg.vision_tokens, cfg.d_model) f32, drawn from ``gen`` on its device
+    (the JAX package draws ``jax.random.normal`` there)."""
+    return torch.randn((batch, cfg.vision_tokens, cfg.d_model),
+                       generator=gen, device=gen.device)

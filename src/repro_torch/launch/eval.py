@@ -37,10 +37,11 @@ import torch
 def evaluate_lm(spec, cfg, params, *, batches=8, batch=8, seq=64, seed=0):
     """Returns {loss, ppl, token_accuracy} over ``batches`` batches of the
     synthetic stream, drawn from a generator seeded by ``seed`` on the
-    params' device. The JAX package's whisper and VLM inputs
-    (``frame_embeds``, ``vision_embeds``) have no branch here: those
-    families are not ported."""
-    from repro_torch.data.tokens import synthetic_token_stream
+    params' device; a VLM's ``vision_embeds`` (B, vision_tokens, d) come
+    from the same generator, after each batch's tokens. The JAX package's
+    whisper inputs (``frame_embeds``) have no branch here: that family is
+    not ported."""
+    from repro_torch.data.tokens import synthetic_token_stream, vision_embeds
     from repro_torch.models.common import softmax_cross_entropy
     from repro_torch.tree import tree_leaves
     model = spec.model
@@ -51,8 +52,10 @@ def evaluate_lm(spec, cfg, params, *, batches=8, batch=8, seq=64, seed=0):
         for _ in range(batches):
             toks, labels = synthetic_token_stream(
                 gen, batch=batch, seq_len=seq, vocab=cfg.vocab_size)
-            logits, _ = model.forward(params, {"tokens": toks}, cfg,
-                                      training=False)
+            b = {"tokens": toks}
+            if getattr(cfg, "vision_tokens", 0):
+                b["vision_embeds"] = vision_embeds(gen, batch, cfg)
+            logits, _ = model.forward(params, b, cfg, training=False)
             tot_loss += float(softmax_cross_entropy(logits, labels))
             tot_acc += float((logits.argmax(-1) == labels.long())
                              .float().mean())

@@ -5,13 +5,16 @@ temperature sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         [--arch qwen3-8b | gemma-7b | minitron-8b | phi3-medium-14b |
+         llama4-scout-17b-a16e | llama4-maverick-400b-a17b | qwen2-vl-7b |
          xlstm-1.3b] [--batch 4] [--prompt-len 16] [--gen 16] [--full] \
         [--device cpu]
 
 The smoke config by default, the architecture's full width with
-``--full``. Parameters are drawn from ``--seed`` on the device itself (no
-weights are loaded), prompts and samples from a ``torch.Generator`` of the
-same seed. It runs on CUDA unless ``--device cpu`` is given, and raises
+``--full`` (the llama4 models' 107.8 B and 400.7 B parameters fit no
+single card). The prompt is text: qwen2-vl-7b decodes without vision
+embeddings, as the JAX package's serve does. Parameters are drawn from
+``--seed`` on the device itself (no weights are loaded), prompts and
+samples from a ``torch.Generator`` of the same seed. It runs on CUDA unless ``--device cpu`` is given, and raises
 when CUDA is absent and no device was asked for.
 """
 from __future__ import annotations

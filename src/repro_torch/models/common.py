@@ -136,9 +136,7 @@ def accuracy_from_logits(logits, labels, *, ignore=IGNORE_LABEL):
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """One config covers dense / GQA / MoE / VLM decoder variants; this
-    slice of the port runs the dense ones (MoE layers and the VLM stub
-    frontend raise)."""
+    """One config covers dense / GQA / MoE / VLM decoder variants."""
     name: str = "transformer"
     num_layers: int = 2
     d_model: int = 256

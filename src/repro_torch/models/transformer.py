@@ -1,14 +1,15 @@
-"""Decoder-only transformer family: the dense GQA architectures (qwen3-8b
-and its kin), for training (``loss_fn``, SFPL's ``collector_perm``),
-prefill and cached decode.
+"""Decoder-only transformer family, for training (``loss_fn``, SFPL's
+``collector_perm``), prefill and cached decode: the dense GQA
+architectures (qwen3-8b and its kin), the MoE ones (llama4-scout and
+llama4-maverick: top-1 MoE with a shared expert, iRoPE's 3 local : 1
+global attention pattern) and the VLM backbone (qwen2-vl-7b: M-RoPE and
+stub vision embeddings merged after BOS).
 
 Layers are grouped into units of ``cfg.group_size`` (the lcm of the
 MoE-period and attention-pattern period); per-group parameters are stacked
 on a leading ``num_groups`` axis exactly as the JAX package stacks them, so
 parameter trees carry across (``repro_torch.convert``). The JAX package's
-``lax.scan`` over the groups is a Python loop here. MoE layers and the VLM
-stub frontend belong to later slices of the port and raise
-``NotImplementedError``.
+``lax.scan`` over the groups is a Python loop here.
 """
 from __future__ import annotations
 
@@ -25,11 +26,9 @@ from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
     embedding_attend)
 from repro_torch.nn.mlp import mlp_init, mlp_apply
+from repro_torch.nn.moe import moe_init, moe_apply, router_load_balance_loss
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
 from repro_torch.tree import tree_map, tree_map_with_path
-
-MOE_SLICE = ("MoE layers (nn/moe.py) belong to the MoE slice of the port, "
-             "which is not ported yet")
 
 
 def _attn_cfg(cfg: TransformerConfig, window):
@@ -46,23 +45,27 @@ def _attn_cfg(cfg: TransformerConfig, window):
 # init
 
 def _layer_init(gen, cfg: TransformerConfig, kind):
-    if kind["moe"]:
-        raise NotImplementedError(MOE_SLICE)
     dt = cfg.pdtype()
-    return {
+    p = {
         "attn_norm": rmsnorm_init(gen, cfg.d_model, dtype=dt),
         "attn": attention_init(gen, _attn_cfg(cfg, kind["window"]),
                                dtype=dt),
         "mlp_norm": rmsnorm_init(gen, cfg.d_model, dtype=dt),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
-                        gated=cfg.act in ("silu", "gelu"), dtype=dt),
     }
+    if kind["moe"]:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                            shared_expert=cfg.moe_shared_expert, dtype=dt)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                            gated=cfg.act in ("silu", "gelu"), dtype=dt)
+    return p
 
 
 def init(gen, cfg: TransformerConfig):
     """Parameters drawn from ``gen`` on its device (a CUDA generator makes
     them on the card). Groups are written one at a time into the stacked
-    leaves, so the peak is the model plus one group."""
+    leaves, so the peak is the model plus one group; a model of one group
+    is its own stacked leaves (a view), with no copy."""
     G = cfg.group_size
     if cfg.num_layers % G:
         raise ValueError(f"num_layers {cfg.num_layers} is not a multiple of "
@@ -82,11 +85,15 @@ def init(gen, cfg: TransformerConfig):
                 for p in range(G)}
 
     group = one_group()
+    if num_groups == 1:
+        params["layers"] = tree_map(lambda a: a.unsqueeze(0), group)
+        return params
     layers = tree_map(lambda a: a.new_empty((num_groups,) + a.shape), group)
     for g in range(num_groups):
         if g:
             group = one_group()
         tree_map(lambda dst, src, g=g: dst[g].copy_(src), layers, group)
+        del group
     params["layers"] = layers
     return params
 
@@ -110,9 +117,18 @@ def _layer(params, g, p):
     return tree_map(lambda a: a[g], params["layers"][f"sub{p}"])
 
 
-def _layer_apply(lp, x, cfg: TransformerConfig, kind, positions):
-    if kind["moe"]:
-        raise NotImplementedError(MOE_SLICE)
+def _ffn(lp, h, cfg: TransformerConfig, kind):
+    """The layer's MLP or MoE on ``h``: (y, the MoE's aux dict or None)."""
+    if not kind["moe"]:
+        return mlp_apply(lp["mlp"], h, act=cfg.act), None
+    return moe_apply(lp["moe"], h, num_experts=cfg.num_experts,
+                     capacity_factor=cfg.capacity_factor, act=cfg.act,
+                     mesh_axes=cfg.mesh_axes)
+
+
+def _layer_apply(lp, x, cfg: TransformerConfig, kind, positions, training):
+    """One layer: ``(x, aux_loss)``, the router's load-balance loss of an
+    MoE layer in training when ``cfg.router_aux_coef`` is set, else 0."""
     lp = cast_for_compute(lp, cfg)
     h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
@@ -120,13 +136,34 @@ def _layer_apply(lp, x, cfg: TransformerConfig, kind, positions):
                             positions=positions)
     h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
-    return x + mlp_apply(lp["mlp"], h, act=cfg.act)
+    y, aux = _ffn(lp, h, cfg, kind)
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is not None and training and cfg.router_aux_coef:
+        aux_loss = router_load_balance_loss(
+            aux["router_logits"], aux["expert_id"], cfg.num_experts)
+    return x + y, aux_loss
+
+
+def build_mrope_positions(batch, seq, vision_tokens, device=None):
+    """M-RoPE ids (3, B, S) for the stub frontend's layout [text BOS]
+    [vision grid][text...]: the vision tokens share t = 1 and take (h, w)
+    grid ids; the text ids advance all three streams together."""
+    gh = max(1, int(math.sqrt(max(vision_tokens, 1))))
+    gw = -(-vision_tokens // gh) if vision_tokens else 1
+    idx = torch.arange(seq, device=device)
+    is_vis = (idx >= 1) & (idx < 1 + vision_tokens)
+    v = (idx - 1).clamp(0, max(vision_tokens - 1, 0))
+    t_id = torch.where(is_vis, 1, idx - torch.where(
+        idx >= 1 + vision_tokens, vision_tokens - 1, 0))
+    h_id = torch.where(is_vis, 1 + v // gw, t_id)
+    w_id = torch.where(is_vis, 1 + v % gw, t_id)
+    pos = torch.stack([t_id, h_id, w_id]).to(torch.int32)      # (3, S)
+    return pos[:, None].expand(3, batch, seq)
 
 
 def _default_positions(cfg, batch, seq, device=None):
     if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE positions (qwen2-vl) belong to the VLM slice of the port")
+        return build_mrope_positions(batch, seq, cfg.vision_tokens, device)
     return torch.arange(seq, dtype=torch.int32,
                         device=device).expand(batch, seq)
 
@@ -140,12 +177,20 @@ def _embed(params, tokens, cfg):
 
 
 def embed_inputs(params, batch_in, cfg: TransformerConfig):
-    """Token embeddings in the compute dtype."""
-    if cfg.vision_tokens:
-        raise NotImplementedError(
-            "vision_tokens (the VLM stub frontend) belong to the VLM slice "
-            "of the port")
-    return _embed(params, batch_in["tokens"], cfg)
+    """Token embeddings in the compute dtype; with ``cfg.vision_tokens``
+    the stub frontend's ``vision_embeds`` (B, Nv, d) take the positions
+    after BOS (from ``min(1, S - Nv)``, where the JAX package's
+    ``dynamic_update_slice`` clamps the start)."""
+    x = _embed(params, batch_in["tokens"], cfg)
+    if not cfg.vision_tokens:
+        return x
+    ve = batch_in["vision_embeds"].to(x.dtype)
+    nv, S = ve.shape[1], x.shape[1]
+    if nv > S:
+        raise ValueError(f"{nv} vision embeddings do not fit in {S} "
+                         f"positions")
+    lo = min(1, S - nv)
+    return torch.cat([x[:, :lo], ve, x[:, lo + nv:]], dim=1)
 
 
 def unembed(params, x, cfg: TransformerConfig):
@@ -172,9 +217,12 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     scatter, Algorithm 1's gradient routing. Labels must be permuted by
     the caller (see ``core.split_lm.sfpl_lm_loss``).
 
-    ``aux`` is the MoE router loss, 0 for the dense layers of this slice.
-    With ``cfg.remat and training`` each layer group (each layer, when a
-    group holds several) is recomputed in the backward instead of stored.
+    ``batch_in`` may hold ``vision_embeds`` (B, Nv, d) for the VLM and
+    ``positions``, (3, B, S) under M-RoPE. ``aux`` is the sum of the MoE
+    layers' router losses in training (0 without MoE or outside
+    training). With ``cfg.remat and training`` each layer group (each
+    layer, when a group holds several) is recomputed in the backward
+    instead of stored.
     ``last_token_only`` keeps the final position (serving prefill);
     ``return_hidden`` returns the final-norm output instead of logits."""
     tokens = batch_in["tokens"]
@@ -186,34 +234,39 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     G = cfg.group_size
 
     def group_fn(x, g):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for p in range(G):
             f = lambda x_, g_, p=p: _layer_apply(
-                _layer(params, g_, p), x_, cfg, cfg.layer_kind(p), positions)
+                _layer(params, g_, p), x_, cfg, cfg.layer_kind(p), positions,
+                training)
             # per-layer remat inside multi-layer groups
-            x = maybe_remat(f, cfg.remat and training and G > 1)(x, g)
-        return constrain_act(x, cfg)
+            x, aux = maybe_remat(f, cfg.remat and training and G > 1)(x, g)
+            aux_total = aux_total + aux
+        return constrain_act(x, cfg), aux_total
 
     # one checkpoint a group when G == 1: nesting both double-recomputes
     body = maybe_remat(group_fn, cfg.remat and training and G == 1)
 
     def run_groups(x, lo, hi):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(lo, hi):
-            x = body(x, g)
-        return x
+            x, a = body(x, g)
+            aux = aux + a
+        return x, aux
 
     num_groups = cfg.num_layers // G
     if collector_perm is not None:
         # client-side portion -> smashed data -> global collector shuffle
-        x = run_groups(x, 0, cut_groups)
+        x, aux1 = run_groups(x, 0, cut_groups)
         x = x.index_select(0, collector_perm.to(x.device))
-        x = run_groups(x, cut_groups, num_groups)
+        x, aux2 = run_groups(x, cut_groups, num_groups)
+        aux = aux1 + aux2
     else:
-        x = run_groups(x, 0, num_groups)
+        x, aux = run_groups(x, 0, num_groups)
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
     if last_token_only:
         x = x[:, -1:]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return unembed(params, x, cfg).float(), aux
@@ -259,8 +312,6 @@ def decode_step(params, state, tokens, cfg: TransformerConfig, *, cur_pos):
     for g in range(cfg.num_layers // G):
         for p in range(G):
             kind = cfg.layer_kind(p)
-            if kind["moe"]:
-                raise NotImplementedError(MOE_SLICE)
             lp = cast_for_compute(_layer(params, g, p), cfg)
             cache = {k: a[g] for k, a in state[f"sub{p}"].items()}
             h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps,
@@ -271,7 +322,7 @@ def decode_step(params, state, tokens, cfg: TransformerConfig, *, cur_pos):
             x = x + attn_out
             h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps,
                               scale_offset=cfg.norm_scale_offset)
-            x = x + mlp_apply(lp["mlp"], h, act=cfg.act)
+            x = x + _ffn(lp, h, cfg, kind)[0]
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
     return unembed(params, x, cfg).float(), state

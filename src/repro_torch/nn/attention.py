@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE, qk-norm, sliding windows and a
-ring-buffer KV cache.
+"""Grouped-query attention with RoPE or M-RoPE, qk-norm, sliding windows
+and a ring-buffer KV cache.
 
 Two execution paths, selected by ``AttnConfig.impl``:
   * ``xla``    — the plain chunked online softmax in PyTorch (the JAX
@@ -8,6 +8,12 @@ Two execution paths, selected by ``AttnConfig.impl``:
                  JAX package's ``pallas`` / ``pallas_interpret``. Like the
                  JAX kernel path it ignores ``positions`` for the mask and
                  assumes aligned positions 0..S-1.
+
+Under M-RoPE (``mrope_sections``, qwen2-vl) positions are (3, B, S) and
+the ``xla`` path masks by the temporal ids ``positions[0]``, as the JAX
+package's does: the vision tokens share one temporal id, so there they
+attend to each other both ways, while the kernel path stays causal by
+index. The two paths differ in the JAX package alike.
 
 Decode uses a slot-indexed cache: ``cache["pos"]`` records the absolute
 position held in each slot (-1 = empty). Global attention uses a cache of
@@ -27,7 +33,7 @@ import torch
 from repro_torch.nn.init import lecun_normal
 from repro_torch.nn.linear import dense_init, dense_apply
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.rope import apply_mrope, apply_rope
 
 NEG_INF = -2.3819763e38  # large negative, bf16-safe masking
 IMPLS = ("xla", "kernel")
@@ -104,10 +110,8 @@ def _dequantize_kv(q, scale, dtype=torch.bfloat16):
 
 
 def _project_qkv(params, x, cfg: AttnConfig, positions):
-    if cfg.use_rope and cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) belongs to the VLM slice of the port, which "
-            "is not ported yet")
+    """q (B, S, H, D), k and v (B, S, K, D), rotated by ``positions``:
+    (B, S), or (3, B, S) with M-RoPE."""
     B, S, _ = x.shape
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense_apply(params["wq"], x).reshape(B, S, H, D)
@@ -116,7 +120,12 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q)
         k = rmsnorm_apply(params["k_norm"], k)
-    if cfg.use_rope:
+    if cfg.use_rope and cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, theta=cfg.rope_theta,
+                        sections=cfg.mrope_sections)
+        k = apply_mrope(k, positions, theta=cfg.rope_theta,
+                        sections=cfg.mrope_sections)
+    elif cfg.use_rope:
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
@@ -196,8 +205,9 @@ def attention_apply(params, x, cfg: AttnConfig, *, positions,
         out = flash_ops.flash_attention(q, k, v, causal=causal,
                                         window=cfg.sliding_window)
     elif cfg.impl == "xla":
-        out = _xla_attention(q, k, v, scale, q_pos=positions,
-                             kv_pos=positions, causal=causal,
+        pq = positions if positions.dim() == 2 else positions[0]
+        out = _xla_attention(q, k, v, scale, q_pos=pq, kv_pos=pq,
+                             causal=causal,
                              window=cfg.sliding_window, kv_chunk=cfg.kv_chunk)
     else:
         raise ValueError(f"attention impl {cfg.impl!r} is not one of {IMPLS}")
@@ -220,7 +230,9 @@ def attention_decode(params, x, cfg: AttnConfig, *, cache, cur_pos):
     else:
         pos_arr = torch.full((B, 1), int(cur_pos), dtype=torch.int32,
                              device=dev)
-    q, k_new, v_new = _project_qkv(params, x, cfg, pos_arr)
+    positions = (pos_arr[None].expand(3, B, 1)
+                 if cfg.mrope_sections is not None else pos_arr)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
 
     slot = torch.remainder(pos_arr[:, 0], num_slots).long()  # ring/identity
     rows = torch.arange(B, device=dev)

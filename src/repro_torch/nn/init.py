@@ -28,11 +28,34 @@ def _device(gen):
     return None if gen is None else gen.device
 
 
+# Leaves of more elements are drawn in slices (see _normal).
+SLICED_DRAW = 2 ** 30
+_SLICE = 2 ** 26
+
+
 def _normal(gen, shape, std, dtype):
     """Drawn on the generator's device: a CUDA generator makes the weights
-    on the card, with no host draw and copy."""
-    return (torch.randn(shape, generator=gen, device=_device(gen))
-            * std).to(dtype)
+    on the card, with no host draw and copy.
+
+    A leaf of more than ``SLICED_DRAW`` elements (one of llama4-maverick's
+    expert stacks holds 5.4e9) is drawn in contiguous slices of
+    ``_SLICE`` elements along its leading axes, each straight into a
+    preallocated leaf of ``dtype``: the temporaries
+    are one f32 slice, not two f32 copies of the leaf. Its numbers differ
+    from one whole draw's; every smaller leaf draws as one call."""
+    dev = _device(gen)
+    n = math.prod(shape)
+    if n <= SLICED_DRAW:
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    buf = torch.empty(min(n, _SLICE), dtype=torch.float32, device=dev)
+    for lo in range(0, n, _SLICE):
+        part = buf[:min(_SLICE, n - lo)]
+        torch.randn(part.shape, generator=gen, out=part)
+        flat[lo:lo + part.numel()].copy_(part.mul_(std))
+    return out
 
 
 def lecun_normal(gen, shape, dtype=torch.float32, in_axis=-2, out_axis=-1):

@@ -1,0 +1,145 @@
+"""Mixture-of-experts layer (top-1 routing, Llama-4 style).
+
+The JAX package's dispatch, kept step for step so that the same tokens are
+routed, kept and dropped. Tokens are routed locally per data-parallel
+group: the token axis is reshaped to (dp_groups, T_local) and every sort,
+rank and gather runs along the local axis:
+
+  1. sort tokens by expert id (a stable sort: which tokens past capacity
+     are dropped depends on the order within an expert's run)
+  2. per-(group, expert) counts -> exclusive-cumsum offsets
+  3. dispatch = a gather of the sorted tokens into a dense (G, E, C, d)
+     buffer (C = local capacity)
+  4. the experts' SwiGLU as batched products over the expert axis
+  5. combine = a gather back by (expert, rank), unsort, gate-scale.
+
+Llama-4 details: top-1 router in f32, sigmoid gate on the routed expert's
+output, an always-on shared expert. Tokens past an expert's capacity get
+no routed output (the shared expert still sees them).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.init import lecun_normal, normal_init
+from repro_torch.nn.mlp import ACTS, mlp_apply, mlp_init
+
+
+def moe_init(gen, d_model, d_ff, num_experts, *, shared_expert=True,
+             dtype=torch.float32):
+    """Router (f32 whatever ``dtype``), the experts' stacked SwiGLU
+    weights ``wi``, ``wg`` (E, d, f) and ``wo`` (E, f, d), and the shared
+    expert."""
+    p = {
+        "router": {"w": normal_init(gen, (d_model, num_experts),
+                                    stddev=0.02, dtype=torch.float32)},
+        "wi": lecun_normal(gen, (num_experts, d_model, d_ff), dtype=dtype,
+                           in_axis=1, out_axis=2),
+        "wg": lecun_normal(gen, (num_experts, d_model, d_ff), dtype=dtype,
+                           in_axis=1, out_axis=2),
+        "wo": lecun_normal(gen, (num_experts, d_ff, d_model), dtype=dtype,
+                           in_axis=1, out_axis=2),
+    }
+    if shared_expert:
+        p["shared"] = mlp_init(gen, d_model, d_ff, gated=True, dtype=dtype)
+    return p
+
+
+def _rank_in_sorted_groups(sorted_eid):
+    """sorted_eid: (G, T) ascending. The rank of each element within its
+    run of equal ids."""
+    T = sorted_eid.shape[-1]
+    idx = torch.arange(T, device=sorted_eid.device)
+    new_run = torch.cat(
+        [torch.ones_like(sorted_eid[..., :1], dtype=torch.bool),
+         sorted_eid[..., 1:] != sorted_eid[..., :-1]], dim=-1)
+    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=-1).values
+    return idx - run_start
+
+
+def capacity(tokens, num_experts, capacity_factor):
+    """Slots an expert holds for ``tokens`` local tokens. Python's
+    ``round`` (half to even), as the JAX package rounds: T 8, E 4 and
+    factor 1.25 give 2."""
+    return int(max(1, round(tokens / num_experts * capacity_factor)))
+
+
+def moe_apply(params, x, *, num_experts, capacity_factor=1.25, act="silu",
+              gate="sigmoid", dp_groups=1, mesh_axes=None):
+    """x: (B, S, d). Returns ``(y, aux)``: y (B, S, d) in x's dtype; aux
+    the router logits (T, E) f32, each token's expert id (T,) and the
+    fraction of tokens dropped past capacity."""
+    if mesh_axes:
+        raise NotImplementedError(
+            "mesh_axes: the sharded LM belongs to a later slice of the port")
+    B, S, d = x.shape
+    E = num_experts
+    T = B * S
+    G = dp_groups if T % dp_groups == 0 else 1
+    Tl = T // G
+    C = capacity(Tl, E, capacity_factor)
+
+    xt = x.reshape(G, Tl, d)
+    logits = torch.einsum("gtd,de->gte", xt.float(),
+                          params["router"]["w"].float())      # (G, Tl, E)
+    expert_id = logits.argmax(dim=-1)                         # first max
+    # amax: a tie shares the gradient as jnp.max's does
+    if gate == "sigmoid":        # llama4: sigmoid of the chosen logit
+        gate_val = torch.sigmoid(logits.amax(dim=-1))
+    else:
+        gate_val = torch.softmax(logits, dim=-1).amax(dim=-1)
+
+    # 1. local sort by expert
+    sort_idx = torch.argsort(expert_id, dim=-1, stable=True)  # (G, Tl)
+    sorted_eid = expert_id.gather(-1, sort_idx)
+    x_sorted = torch.take_along_dim(xt, sort_idx[..., None], dim=1)
+
+    # 2. per-expert counts -> offsets into the sorted order
+    counts = torch.zeros((G, E), dtype=torch.long, device=x.device)
+    counts.scatter_add_(1, expert_id, torch.ones_like(expert_id))
+    offsets = torch.cumsum(counts, dim=-1) - counts           # exclusive
+
+    # 3. gather-only dispatch into (G, E, C, d)
+    pos = torch.arange(C, device=x.device)
+    gather_idx = (offsets[..., None] + pos).clamp(0, Tl - 1)  # (G, E, C)
+    valid = pos < torch.clamp_max(counts, C)[..., None]
+    buf = torch.take_along_dim(
+        x_sorted, gather_idx.reshape(G, E * C)[..., None], dim=1)
+    buf = buf.reshape(G, E, C, d) * valid[..., None].to(x.dtype)
+
+    # 4. the experts' SwiGLU, batched over the expert axis
+    h = torch.einsum("gecd,edf->gecf", buf, params["wi"])
+    g = torch.einsum("gecd,edf->gecf", buf, params["wg"])
+    h = ACTS[act](g) * h
+    out = torch.einsum("gecf,efd->gecd", h, params["wo"])
+
+    # 5. combine: the token at sorted position t sits at (expert, rank)
+    rank = _rank_in_sorted_groups(sorted_eid)                 # (G, Tl)
+    keep = rank < C
+    comb_idx = sorted_eid * C + torch.clamp_max(rank, C - 1)
+    y_sorted = torch.take_along_dim(out.reshape(G, E * C, d),
+                                    comb_idx[..., None], dim=1)
+    y_sorted = y_sorted * keep[..., None].to(out.dtype)
+    inv = torch.empty_like(sort_idx).scatter_(
+        -1, sort_idx, torch.arange(Tl, device=x.device).expand(G, Tl))
+    y_routed = torch.take_along_dim(y_sorted, inv[..., None], dim=1)
+    y_routed = y_routed * gate_val[..., None].to(y_routed.dtype)
+    y = y_routed.reshape(T, d)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x.reshape(T, d), act=act)
+    y = y.reshape(B, S, d).to(x.dtype)
+    aux = {
+        "router_logits": logits.reshape(T, E),
+        "expert_id": expert_id.reshape(T),
+        "dropped_frac": 1.0 - keep.float().mean(),
+    }
+    return y, aux
+
+
+def router_load_balance_loss(router_logits, expert_id, num_experts):
+    """Switch-transformer load balance loss: ``E * sum_e f_e * p_e``."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    p_e = probs.mean(dim=0)                                   # (E,)
+    f_e = F.one_hot(expert_id.long(), num_experts).float().mean(dim=0)
+    return num_experts * torch.sum(f_e * p_e)

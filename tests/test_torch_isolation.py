@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of ``repro_torch``,
 running a one-step SFPL epoch, single-device and sharded (world size 1,
 int8 wire), a qwen3-8b smoke prefill through the kernel attention path, an
-xlstm-1.3b smoke prefill through the sLSTM kernel path, a 3-token
-``serve`` of each, a fault plan's draw, a train-state checkpoint round
-trip, ``retry_call``, ``multihost.host_value`` and one SFPL LM train
+xlstm-1.3b smoke prefill through the sLSTM kernel path, smoke prefills of
+llama4-scout, llama4-maverick and qwen2-vl (vision embeddings included)
+through the kernel attention path, a 3-token ``serve`` of each, a fault
+plan's draw, a train-state checkpoint round trip, ``retry_call``, ``multihost.host_value`` and one SFPL LM train
 step loads neither ``jax`` nor ``repro``; and the entry points run on CUDA
 by default, raising when it is absent."""
 import os
@@ -70,6 +71,21 @@ assert x_logits.shape == (2, 1, x_cfg.vocab_size)
 assert bool(torch.isfinite(x_logits).all())
 out = serve("xlstm-1.3b", batch=2, prompt_len=4, gen=3, device="cpu")
 assert out.shape == (2, 3)
+
+for arch in ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+             "qwen2-vl-7b"):
+    m_spec = get_arch(arch)
+    m_cfg = dataclasses.replace(m_spec.make_smoke_config(),
+                                attention_impl="kernel")
+    m_params = m_spec.model.init(torch.Generator().manual_seed(0), m_cfg)
+    m_batch = {"tokens": torch.randint(0, m_cfg.vocab_size, (2, 20))}
+    if m_cfg.vision_tokens:
+        m_batch["vision_embeds"] = torch.randn(2, m_cfg.vision_tokens,
+                                               m_cfg.d_model)
+    m_logits = make_prefill_step(m_spec, m_cfg)(m_params, m_batch)
+    assert bool(torch.isfinite(m_logits).all())
+    out = serve(arch, batch=2, prompt_len=4, gen=3, device="cpu")
+    assert out.shape == (2, 3)
 
 import os, tempfile
 from repro_torch import checkpoint as CK
@@ -139,7 +155,7 @@ def test_later_slice_knobs_raise_not_implemented():
     JAX launcher's ``ValueError``)."""
     from repro_torch.launch.train import main
     with pytest.raises(KeyError, match="not yet ported"):
-        main(["--arch", "llama4-scout-17b-a16e", "--device", "cpu",
+        main(["--arch", "whisper-large-v3", "--device", "cpu",
               "--steps", "1"])
     with pytest.raises(ValueError, match="requires --scheme sfpl"):
         main(["--paper", "--scheme", "sflv2", "--drop-rate", "0.2",

@@ -394,15 +394,15 @@ def test_continuous_batcher_samples_at_jax_temperature(temps):
 
 
 def test_later_slices_raise_naming_them():
-    """MoE layers and the VLM frontend (M-RoPE, vision tokens) are later
-    slices: each raises, naming its slice. SFPL LM training is ported: an
-    identity ``collector_perm`` gives the plain forward."""
+    """MoE layers and the VLM frontend (M-RoPE, vision tokens) are ported:
+    a small config of each runs its forward to finite logits. An
+    architecture of a later slice still raises the registry's
+    ``KeyError``. SFPL LM training is ported: an identity
+    ``collector_perm`` gives the plain forward."""
     from repro_torch.models import transformer as T
     gen = torch.Generator().manual_seed(0)
     small = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
                  head_dim=16, d_ff=64, vocab_size=64)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        T.init(gen, TransformerConfig(num_experts=4, **small))
     cfg = TransformerConfig(**small)
     params = T.init(gen, cfg)
     toks = torch.zeros((1, 4), dtype=torch.long)
@@ -410,9 +410,14 @@ def test_later_slices_raise_naming_them():
     cut, _ = T.forward(params, {"tokens": toks}, cfg,
                        collector_perm=torch.arange(1))
     assert torch.equal(plain, cut)
-    for kw in (dict(mrope_sections=(2, 3, 3)), dict(vision_tokens=2)):
-        with pytest.raises(NotImplementedError, match="VLM slice"):
-            T.forward(params, {"tokens": toks},
-                      dataclasses.replace(cfg, **kw))
+    for kw in (dict(num_experts=4), dict(mrope_sections=(2, 3, 3)),
+               dict(mrope_sections=(2, 3, 3), vision_tokens=2)):
+        c = dataclasses.replace(cfg, **kw)
+        batch = {"tokens": toks}
+        if c.vision_tokens:
+            batch["vision_embeds"] = torch.ones((1, 2, 32))
+        logits, _ = T.forward(T.init(gen, c), batch, c)
+        assert logits.shape == (1, 4, 64)
+        assert bool(torch.isfinite(logits).all()), kw
     with pytest.raises(KeyError, match="not yet ported"):
         get_arch("recurrentgemma-9b")
