@@ -44,8 +44,17 @@ with a binding 128-token window, ``make_decode_step``, the
 at 4 layers in bf16, its prefill and a bf16 check (phase 24); qwen2-vl-7b
 at full depth, its prefill with 1,024 vision embeddings through K7 at
 28/4 heads, a 2-layer f32 check of K7 against its plain version in the
-same forward, and ``serve(smoke=False)`` (phase 25). Each phase prints
-its seconds. It
+same forward, and ``serve(smoke=False)`` (phase 25); then the last two
+families at full width and depth: recurrentgemma-9b, its prefill with 12
+K7 launches at 16/1 heads, D 256 and a 2048 window, the RG-LRU's gates and
+associative scan timed alone, 5-layer f32 checks of K7 against its plain
+version and the plain path and of cached decode through a wrapping ring
+against the forward, and ``serve(smoke=False)`` (phase 26);
+whisper-large-v3, its prefill over 1,500 frames and 448 tokens with 64 K7
+launches (the encoder's non-causal, the decoder's causal), decode against
+a whole 1,500-frame cross cache, 2-layer f32 checks as phase 26's
+through ``encode`` and ``prefill_cross``, and ``serve(smoke=False)``
+(phase 27). Each phase prints its seconds. It
 prints, as its last line, ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
@@ -126,10 +135,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
     "slstm_scan": "src/repro/kernels/slstm_scan/kernel.py:73",
 }
-# K7 at head_dim 256 (gemma-7b), at llama4's 40/8 heads and at qwen2-vl's
-# 28/4 each have a row of their own in the kernels line
+# K7 at head_dim 256 (gemma-7b), at llama4's 40/8 heads, at qwen2-vl's
+# 28/4, at recurrentgemma-9b's windowed 16/1 MQA and at whisper-large-v3's
+# non-causal encoder (D 64, 20/20) each have a row of their own in the
+# kernels line
 K7_ROWS = ("flash_attention_d256", "flash_attention_llama4",
-           "flash_attention_qwen2vl")
+           "flash_attention_qwen2vl", "flash_attention_rglru",
+           "flash_attention_whisper")
 for _row in K7_ROWS:
     REPLACES[_row] = REPLACES["flash_attention"]
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
@@ -648,6 +660,8 @@ def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
         q, k, v = (torch.randn(b, s, n, d, device=DEV).to(dtype)
                    for n in (h, kh, kh))
     big = b * h * s * s >= 2 ** 31
+    # the plain version's f32 scores take gigabytes from here on
+    heavy = big or s >= 4096 or b * h * s * s >= 2 ** 28
     plain = (attention_plain_by_head if big else
              lambda *a: flash_ref.attention_ref(*a[:3], causal=a[3],
                                                 window=a[4]))
@@ -672,20 +686,24 @@ def check_flash(b, s, h, kh, d, dtype, causal=True, window=None, time=True,
            2 * (q.numel() + k.numel()) * q.element_size(),
            4 * b * h * d * pairs, library=lib,
            peak="bfloat16" if dtype == torch.bfloat16 else "float32",
-           heavy=big or s >= 4096)
+           heavy=heavy)
     return err
 
 
 # The prefill cut: the repo's prefill_32k shape is B 32 x S 32768; here
 # B 4 x S 4096 (PERF.md section 4), for qwen3-8b and xlstm-1.3b alike.
 LM_BATCH, LM_SEQ = 4, 4096
+# whisper-large-v3's prefill: 30 s of audio (1,500 encoder frames) and its
+# whole 448-token decoder context, 16 requests a batch
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS = 16, 1500, 448
 
 
 def kernels_lm():
     """K6 at qwen3-8b's norm shapes and the ragged widths of the JAX tests;
     K7 at the prefill's shape, one long sequence, and the fuzz grid; K7 at
     head_dim 256 at gemma-7b's and recurrentgemma-9b's shapes and over its
-    tile edges."""
+    tile edges; K7 at whisper-large-v3's encoder shape and over the D 64
+    Hopper kernel's tile edges."""
     main = {}
     check_rmsnorm(16384, 4096, torch.bfloat16)
     main["rmsnorm"] = RESULTS[-1]
@@ -757,6 +775,11 @@ def kernels_lm():
     main["flash_attention_d256"] = RESULTS[-1]
     check_flash(1, LM_SEQ, 16, 1, 256, torch.bfloat16, window=2048,
                 library=True)
+    # recurrentgemma-9b's prefill attention (phase 26): its 12 local MQA
+    # layers at the prefill's shape, the 2048 window binding
+    check_flash(LM_BATCH, LM_SEQ, 16, 1, 256, torch.bfloat16, window=2048,
+                library=True)
+    main["flash_attention_rglru"] = RESULTS[-1]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for s in (31, 64, 65, 200):
@@ -787,6 +810,24 @@ def kernels_lm():
     print(f"flash_attention bf16 D 256 grid on the Hopper kernel (S 63/64/"
           f"65/127/128/129/1000, H/K 4/4 4/1, causal or not, window "
           f"none/40): max err {worst:.3e} (tol 2e-2)")
+    # whisper-large-v3's encoder self-attention (phase 27): 32 non-causal
+    # layers over 1,500 frames at D 64, 20 heads, at its prefill's batch
+    check_flash(WHISPER_BATCH, WHISPER_FRAMES, 20, 20, 64, torch.bfloat16,
+                causal=False, library=True)
+    main["flash_attention_whisper"] = RESULTS[-1]
+    # the Hopper kernel's edges at D 64: S around its 128-row and 128-key
+    # tiles, whisper's decoder context (448) and encoder frames (1500)
+    worst = 0.0
+    for s in (127, 128, 129, 255, 448, 1000, 1500):
+        for h, kh in ((20, 20), (8, 1)):
+            for causal in (True, False):
+                for window in (None, 64):
+                    worst = max(worst, check_flash(
+                        2, s, h, kh, 64, torch.bfloat16, causal, window,
+                        time=False))
+    print(f"flash_attention bf16 D 64 grid on the Hopper kernel (S 127/128/"
+          f"129/255/448/1000/1500, H/K 20/20 8/1, causal or not, window "
+          f"none/64): max err {worst:.3e} (tol 2e-2)")
     return main
 
 
@@ -1405,29 +1446,77 @@ def routed_alike(a, b, bsz, s, decode_b=False):
     return same, int((~same).sum())
 
 
-def full_prefill(arch, **overrides):
+def k7_per_prefill(spec, cfg):
+    """K7 launches in one prefill: one a transformer layer, one a
+    recurrentgemma local-attention block, two a whisper layer pair (the
+    encoder's and the decoder's self-attention; cross-attention takes the
+    plain path)."""
+    if spec.family == "rglru":
+        return (cfg.pattern.count("attn") * cfg.num_groups
+                + cfg.pattern[:cfg.num_trailing].count("attn"))
+    if spec.family == "whisper":
+        return 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def weight_elems(tree, keep=lambda path: True):
+    """Elements of the dense ``w`` matrices in ``tree`` (no conv taps)
+    whose path ``keep`` accepts."""
+    from repro_torch.tree import tree_map_with_path
+    sizes = []
+    tree_map_with_path(lambda path, a: sizes.append(
+        a.numel() if path[-1] == "w" and a.dim() >= 2 and "conv" not in path
+        and keep(path) else 0), tree)
+    return sum(sizes)
+
+
+def prefill_matmul_flops(spec, cfg, params, b, s):
+    """Dense matmul FLOPs of one prefill's layers: 2 a token a weight
+    (whisper: the encoder's and the cross-attention K / V projections over
+    the frames, the rest of the decoder over the tokens)."""
+    if spec.family == "whisper":
+        cross_kv = lambda path: "cross_attn" in path and (   # noqa: E731
+            "wk" in path or "wv" in path)
+        frames = b * WHISPER_FRAMES
+        return 2 * (frames * weight_elems(params["enc_layers"])
+                    + frames * weight_elems(params["dec_layers"], cross_kv)
+                    + b * s * weight_elems(params["dec_layers"],
+                                           lambda p: not cross_kv(p)))
+    if spec.family == "rglru":
+        return 2 * b * s * (weight_elems(params["layers"])
+                            + weight_elems(params.get("trailing", {})))
+    # the stacked (num_groups, in, out) weights of the layers (routers and
+    # shared experts included: every token goes through them)
+    return 2 * b * s * sum(a.numel() for a in tree_leaves(params["layers"])
+                           if a.dim() == 3)
+
+
+def full_prefill(arch, b=LM_BATCH, s=LM_SEQ, **overrides):
     """``arch`` at full width (``overrides``: a depth cut), its parameters
     (f32, or its config's dtype) drawn on the card from seed 0, bf16
     compute, attention through K7: one cold and two warm prefills through
-    ``make_prefill_step`` at B LM_BATCH x S LM_SEQ (wall, tokens/s, peak
-    memory), one K7 launch a layer, finite last-token logits, and a
-    profile of a warm prefill. A VLM's vision embeddings are drawn from
-    the tokens' generator; an MoE model prints the fraction of tokens each
-    MoE layer dropped past capacity. Returns (spec, cfg, params, tokens,
-    logits, launches, profile by kernel)."""
+    ``make_prefill_step`` at B ``b`` x S ``s`` (wall, tokens/s, peak
+    memory), ``k7_per_prefill`` K7 launches, finite last-token logits, and
+    a profile of a warm prefill. A VLM's vision embeddings and whisper's
+    ``WHISPER_FRAMES`` frame embeddings are drawn from the tokens'
+    generator; an MoE model prints the fraction of tokens each MoE layer
+    dropped past capacity. Returns (spec, cfg, params, batch, logits,
+    launches, profile by kernel)."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.nn.moe import capacity
     spec = get_arch(arch)
     cfg = spec.make_config(attention_impl="kernel", **overrides)
     params = lm_init(cfg, seed=0, arch=arch)
     gen = torch.Generator(device=DEV).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
-                         generator=gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV)
     batch = {"tokens": toks}
-    if cfg.vision_tokens:
+    if getattr(cfg, "vision_tokens", 0):
         batch["vision_embeds"] = torch.randn(
-            (LM_BATCH, cfg.vision_tokens, cfg.d_model), generator=gen,
-            device=DEV)
+            (b, cfg.vision_tokens, cfg.d_model), generator=gen, device=DEV)
+    if spec.family == "whisper":
+        batch["frame_embeds"] = torch.randn(
+            (b, WHISPER_FRAMES, cfg.d_model), generator=gen, device=DEV)
     prefill = make_prefill_step(spec, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1444,19 +1533,21 @@ def full_prefill(arch, **overrides):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     warm = min(walls)
-    n_tok = LM_BATCH * LM_SEQ
+    n_tok = b * s
+    frames = (f", {b * WHISPER_FRAMES / warm:.0f} encoder frames/s"
+              if spec.family == "whisper" else "")
     print(f"prefill wall cold {cold:.3f} s, warm {walls[0]:.3f} and "
-          f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # the stacked (num_groups, in, out) weights of the layers (routers and
-    # shared experts included: every token goes through them)
-    dense = sum(a.numel() for a in tree_leaves(params["layers"])
-                if a.dim() == 3)
-    head = 2 * LM_BATCH * cfg.d_model * cfg.vocab_size
-    print(f"dense matmul FLOPs per prefill: {2 * n_tok * dense:.3e} in "
-          f"the layers, {head:.3e} in the last-token unembedding")
-    n_moe = sum(cfg.layer_kind(p)["moe"] for p in range(cfg.group_size)) \
-        * (cfg.num_layers // cfg.group_size)
+          f"{walls[1]:.3f} s ({n_tok / warm:.0f} tokens/s{frames}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    head = 2 * b * cfg.d_model * cfg.vocab_size
+    print(f"dense matmul FLOPs per prefill: "
+          f"{prefill_matmul_flops(spec, cfg, params, b, s):.3e} in the "
+          f"layers, {head:.3e} in the last-token unembedding")
+    n_moe = 0
+    if spec.family == "transformer":
+        n_moe = sum(cfg.layer_kind(p)["moe"]
+                    for p in range(cfg.group_size)) \
+            * (cfg.num_layers // cfg.group_size)
     if n_moe:
         # the experts' three products over their (E, C) slots, the padded
         # slots included (the work the batched products do)
@@ -1473,17 +1564,17 @@ def full_prefill(arch, **overrides):
     print(f"launches in one prefill: flash_attention "
           f"{launches['flash_attention']}, rmsnorm {launches['rmsnorm']} "
           f"(no model calls K6, as in the JAX package)")
-    if launches["flash_attention"] != cfg.num_layers:
+    if launches["flash_attention"] != k7_per_prefill(spec, cfg):
         raise AssertionError(f"prefill launched K7 "
-                             f"{launches['flash_attention']} times, "
-                             f"not once per layer ({cfg.num_layers})")
+                             f"{launches['flash_attention']} times, not "
+                             f"{k7_per_prefill(spec, cfg)}")
     finite = bool(torch.isfinite(logits).all())
-    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or not finite:
+    if tuple(logits.shape) != (b, 1, cfg.vocab_size) or not finite:
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              f"finite={finite}")
     seen = profile_steps(lambda k: prefill(params, batch), steps=1,
                          what="warm prefill")
-    return spec, cfg, params, toks, logits, launches, seen
+    return spec, cfg, params, batch, logits, launches, seen
 
 
 def lm_prefill():
@@ -1495,8 +1586,9 @@ def lm_prefill():
     from repro_torch.nn.linear import embedding_apply
     from repro_torch.nn.norm import rmsnorm_apply
     with torch.inference_mode():
-        spec, cfg, params, toks, logits, launches, _ = full_prefill(
+        spec, cfg, params, batch, logits, launches, _ = full_prefill(
             "qwen3-8b")
+        toks = batch["tokens"]
 
         # the same prefill on the plain attention path, at batch 1 (its
         # f32 scores at S 4096 take 2 GB a layer): print only, bf16 over
@@ -2661,6 +2753,234 @@ def qwen2_vl(smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 26-27: the RG-LRU hybrid recurrentgemma-9b and the encoder-decoder
+# whisper-large-v3, at full width and depth
+
+# jax.eval_shape of the JAX package's init
+RGLRU_PARAMS = 9_396_408_320
+WHISPER_PARAMS = 1_535_751_680
+
+
+def check_param_count(params, want):
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != want:
+        raise AssertionError(f"{n} parameters, the JAX package's init has "
+                             f"{want}")
+
+
+def rglru_pieces(cfg, params, b, s):
+    """The RG-LRU's gates (the two W x W gate projections and the
+    elementwise work) and its associative scan, each alone on the first
+    rec block's weights at the prefill's shape (B ``b`` x S ``s`` x W, the
+    conv output in the compute dtype), timed in a CUDA graph: their device
+    time a rec block and over the model's rec blocks."""
+    from repro_torch.models import rglru as TG
+    from repro_torch.tree import tree_map
+    lru = TG._cast(tree_map(lambda a: a[0],
+                            params["layers"]["sub0"]["mix"]["lru"]), cfg)
+    x = torch.randn((b, s, cfg.rnn_width), device=DEV).to(cfg.cdtype())
+    a, bb = TG._rglru_gates(lru, x, cfg.lru_c)
+    gates = time_ms(lambda: TG._rglru_gates(lru, x, cfg.lru_c), iters=4,
+                    reps=3)
+    scan = time_ms(lambda: TG.associative_scan(a, bb), iters=4, reps=3)
+    n_rec = (cfg.pattern.count("rec") * cfg.num_groups
+             + cfg.pattern[:cfg.num_trailing].count("rec"))
+    proj = 2 * 2 * b * s * cfg.rnn_width ** 2
+    # the scan's bytes: a and b read and h written once, f32
+    nbytes = 3 * b * s * cfg.rnn_width * 4
+    print(f"RG-LRU at B {b} x S {s} x W {cfg.rnn_width}: gates {gates:.3f} "
+          f"ms a block (two projections, {proj:.3e} FLOPs, and the "
+          f"elementwise gates), associative scan {scan:.3f} ms a block "
+          f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms: {nbytes / 1e9:.2f}"
+          f" GB of a, b and h); over the {n_rec} rec blocks: gates "
+          f"{gates * n_rec:.1f} ms, scan {scan * n_rec:.1f} ms a prefill")
+    return gates, scan, n_rec
+
+
+def decode_against(spec, cfg, params, state, toks, want, what):
+    """``decode_step`` fed ``toks`` (B, S) one at a time from ``state``:
+    the logits at every position within 2e-3 of ``want``; returns ms a
+    step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = []
+    for t in range(toks.shape[1]):
+        lg, state = spec.model.decode_step(params, state, toks[:, t:t + 1],
+                                           cfg, cur_pos=t)
+        dec.append(lg)
+    dec = torch.cat(dec, dim=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / toks.shape[1] * 1e3
+    err, ok = compare(dec, want, 2e-3, 2e-3)
+    print(f"{what}: cached decode fed the same {toks.shape[1]} tokens "
+          f"against the forward: max |diff| {err:.3e} (tol 2e-3); "
+          f"{ms:.1f} ms a B {toks.shape[0]} f32 step")
+    if not ok:
+        raise AssertionError(f"{what}: decode differs from the forward by "
+                             f"{err}")
+    return ms
+
+
+def paths_agree(spec, cfg, params, batch, what):
+    """The f32 forward with attention through K7, through K7's plain
+    version in the same forward (``plain_flash``), and on the plain
+    attention path: every position's logits within 2e-3. Returns the
+    plain path's logits."""
+    import dataclasses
+    kcfg = dataclasses.replace(cfg, attention_impl="kernel")
+    K.reset_launches()
+    full_k, _ = spec.model.forward(params, batch, kcfg)
+    n_k7 = K.LAUNCHES["flash_attention"]
+    with plain_flash():
+        full_p, _ = spec.model.forward(params, batch, kcfg)
+    n_plain = K.LAUNCHES["flash_attention"] - n_k7
+    full_x, _ = spec.model.forward(params, batch, cfg)
+    err_p, ok_p = compare(full_k, full_p, 2e-3, 2e-3)
+    err_x, ok_x = compare(full_k, full_x, 2e-3, 2e-3)
+    print(f"{what}: prefill logits (f32, every position), K7 against its "
+          f"plain version in the same forward: max |diff| {err_p:.3e}; "
+          f"against the plain attention path: {err_x:.3e} (tol 2e-3; "
+          f"{n_k7} K7 launches, {n_plain} in the plain run; max |logit| "
+          f"{float(full_x.abs().max()):.3f})")
+    if not (ok_p and ok_x) or n_k7 != k7_per_prefill(spec, cfg) or n_plain:
+        raise AssertionError(f"{what}: K7 prefill differs from plain by "
+                             f"{err_p} / {err_x} ({n_k7} launches)")
+    return full_x
+
+
+def rglru_checks(spec):
+    """recurrentgemma-9b's first 5 layers (one (rec, rec, attn) group and
+    the 2 trailing rec blocks) at full width, f32, B 2 x S 200 with the
+    window cut to 64, so that it binds in the prefill and the decode ring
+    of 64 slots wraps: K7 against its plain version and the plain path,
+    and cached decode against the forward."""
+    cfg = spec.make_config(num_layers=5, compute_dtype="float32", window=64)
+    params = lm_init(cfg, seed=2, arch=spec.arch_id)
+    b, s = 2, 200
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(3))
+    want = paths_agree(spec, cfg, params, {"tokens": toks},
+                       "recurrentgemma-9b 5 layers, window 64")
+    state = spec.model.init_decode_state(cfg, b, s, dtype=torch.float32,
+                                         device=DEV)
+    decode_against(spec, cfg, params, state, toks, want,
+                   "recurrentgemma-9b 5 layers, a 64-slot ring")
+    del params
+
+
+def recurrentgemma(smi):
+    phase(f"26. recurrentgemma-9b at full width and depth (38 layers: 12 x "
+          f"(rec, rec, local MQA) + 2 rec; d 4096, RG-LRU width 4096, 16/1 "
+          f"heads at D 256, window 2048, vocab 256,000), f32 params, bf16 "
+          f"compute: prefill B {LM_BATCH} x S {LM_SEQ} through K7, the "
+          f"RG-LRU's gates and scan, 5-layer f32 checks, serve(smoke=False)")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("qwen2-vl-7b")
+    from repro_torch.launch.serve import serve
+    arch = "recurrentgemma-9b"
+    with torch.inference_mode():
+        spec, cfg, params, _, logits, launches, _ = full_prefill(arch)
+        check_param_count(params, RGLRU_PARAMS)
+        rglru_pieces(cfg, params, LM_BATCH, LM_SEQ)
+        del params, logits
+        torch.cuda.empty_cache()
+        rglru_checks(spec)
+    torch.cuda.empty_cache()
+    out = serve(arch, batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.max()) >= 256000:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens")
+    return launches
+
+
+def whisper_checks(spec):
+    """whisper-large-v3 at full width, 2 layers a side, f32, B 2 x 1,500
+    frames x 200 tokens: K7 (the encoder's non-causal self-attention, the
+    decoder's causal one) against its plain version and the plain path,
+    then ``encode`` -> ``prefill_cross`` -> 200 ``decode_step``s against
+    the forward."""
+    cfg = spec.make_config(num_layers=2, compute_dtype="float32")
+    params = lm_init(cfg, seed=2, arch=spec.arch_id)
+    b, s = 2, 200
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=DEV),
+             "frame_embeds": torch.randn((b, WHISPER_FRAMES, cfg.d_model),
+                                         generator=gen, device=DEV)}
+    want = paths_agree(spec, cfg, params, batch,
+                       "whisper-large-v3 2 + 2 layers, 1,500 frames")
+    state = spec.model.init_decode_state(cfg, b, s, dtype=torch.float32,
+                                         enc_frames=WHISPER_FRAMES,
+                                         device=DEV)
+    state = spec.model.prefill_cross(params, spec.model.encode(
+        params, batch["frame_embeds"], cfg), state, cfg)
+    decode_against(spec, cfg, params, state, batch["tokens"], want,
+                   "whisper-large-v3 2 + 2 layers, 1,500-frame cross cache")
+    del params
+
+
+def transcription_decode(spec, cfg, params, batch=4, steps=32):
+    """``make_decode_step`` at ``batch`` against a whole 30 s cross cache
+    (1,500 encoder frames, bf16 caches), bf16 compute: ms a step over
+    ``steps`` greedy steps after 4 warm ones."""
+    from repro_torch.launch.steps import make_decode_step
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    frames = torch.randn((batch, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=DEV)
+    t0 = time.perf_counter()
+    state = spec.model.init_decode_state(cfg, batch, steps + 4,
+                                         enc_frames=WHISPER_FRAMES,
+                                         device=DEV)
+    state = spec.model.prefill_cross(params, spec.model.encode(
+        params, frames, cfg), state, cfg)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    decode = make_decode_step(spec, cfg)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=DEV)
+    for t in range(4):
+        logits, state = decode(params, state, tok, t)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(4, 4 + steps):
+        logits, state = decode(params, state, tok, t)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    print(f"transcription decode: encode + prefill_cross of B {batch} x "
+          f"{WHISPER_FRAMES} frames {enc_s:.3f} s, then make_decode_step "
+          f"{ms:.1f} ms a step ({batch * 1e3 / ms:.1f} tok/s) over {steps} "
+          f"steps, {cfg.num_layers} decoder layers, bf16 caches")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("transcription decode gave non-finite logits")
+
+
+def whisper(smi):
+    phase(f"27. whisper-large-v3 at full width and depth (32 encoder + 32 "
+          f"decoder layers, d 1280, 20/20 heads at D 64, vocab 51,866), f32 "
+          f"params, bf16 compute: prefill B {WHISPER_BATCH} x "
+          f"{WHISPER_FRAMES} frames x {WHISPER_TOKENS} tokens through K7, "
+          f"2-layer f32 checks, serve(smoke=False), decode against a "
+          f"1,500-frame cross cache")
+    print(f"card: {smi} (every time below was taken on it)")
+    free_device_memory("recurrentgemma-9b")
+    from repro_torch.launch.serve import serve
+    arch = "whisper-large-v3"
+    with torch.inference_mode():
+        spec, cfg, params, _, logits, launches, _ = full_prefill(
+            arch, b=WHISPER_BATCH, s=WHISPER_TOKENS)
+        check_param_count(params, WHISPER_PARAMS)
+        transcription_decode(spec, cfg, params)
+        del params, logits
+        torch.cuda.empty_cache()
+        whisper_checks(spec)
+    torch.cuda.empty_cache()
+    out = serve(arch, batch=4, prompt_len=64, gen=32, smoke=False)
+    if tuple(out.shape) != (4, 32) or int(out.max()) >= 51866:
+        raise AssertionError(f"serve returned {tuple(out.shape)} tokens")
+    return launches
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -2687,6 +3007,8 @@ def main():
     launches_scout = llama4_scout(smi)
     llama4_maverick(smi)
     launches_vl = qwen2_vl(smi)
+    launches_rg = recurrentgemma(smi)
+    launches_w = whisper(smi)
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}
@@ -2707,6 +3029,11 @@ def main():
                                       "prefill, 4 layers)")
     launches["flash_attention_qwen2vl"] = launches_vl["flash_attention"]
     path["flash_attention_qwen2vl"] = "phase 25 (one qwen2-vl-7b prefill)"
+    launches["flash_attention_rglru"] = launches_rg["flash_attention"]
+    path["flash_attention_rglru"] = "phase 26 (one recurrentgemma-9b prefill)"
+    launches["flash_attention_whisper"] = launches_w["flash_attention"]
+    path["flash_attention_whisper"] = ("phase 27 (one whisper-large-v3 "
+                                       "prefill)")
     lines = []
     for name, row in measured.items():
         route, source = ROUTE[name]

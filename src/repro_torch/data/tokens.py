@@ -4,6 +4,10 @@ from __future__ import annotations
 
 import torch
 
+# frames a batch of whisper's stub frontend in the LM launchers, as in the
+# JAX package's launch/train.py and launch/eval.py
+LM_FRAMES = 16
+
 
 def synthetic_token_stream(gen, *, batch, seq_len, vocab, order=2,
                            device=None):
@@ -35,3 +39,11 @@ def vision_embeds(gen, batch, cfg):
     (the JAX package draws ``jax.random.normal`` there)."""
     return torch.randn((batch, cfg.vision_tokens, cfg.d_model),
                        generator=gen, device=gen.device)
+
+
+def frame_embeds(gen, batch, frames, cfg):
+    """The audio stub frontend's frame embeddings: standard normal (batch,
+    frames, cfg.d_model) f32, drawn from ``gen`` on its device (the JAX
+    package draws ``jax.random.normal`` there)."""
+    return torch.randn((batch, frames, cfg.d_model), generator=gen,
+                       device=gen.device)

@@ -2,7 +2,7 @@
 against SFLv2).
 
     PYTHONPATH=src python -m repro_torch.launch.eval --arch qwen3-8b \
-        [--batches 8] [--ckpt out.npz] [--device cpu]
+        [--batches 8] [--seq 64] [--ckpt out.npz] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.eval --paper \
         [--clients 8] [--epochs 4] [--alpha 1.0] [--compute-dtype bfloat16] \
         [--device cpu]
@@ -37,11 +37,12 @@ import torch
 def evaluate_lm(spec, cfg, params, *, batches=8, batch=8, seq=64, seed=0):
     """Returns {loss, ppl, token_accuracy} over ``batches`` batches of the
     synthetic stream, drawn from a generator seeded by ``seed`` on the
-    params' device; a VLM's ``vision_embeds`` (B, vision_tokens, d) come
-    from the same generator, after each batch's tokens. The JAX package's
-    whisper inputs (``frame_embeds``) have no branch here: that family is
-    not ported."""
-    from repro_torch.data.tokens import synthetic_token_stream, vision_embeds
+    params' device; whisper's ``frame_embeds`` (B, LM_FRAMES, d) and a
+    VLM's ``vision_embeds`` (B, vision_tokens, d) come from the same
+    generator, after each batch's tokens."""
+    from repro_torch.data.tokens import (LM_FRAMES, frame_embeds,
+                                         synthetic_token_stream,
+                                         vision_embeds)
     from repro_torch.models.common import softmax_cross_entropy
     from repro_torch.tree import tree_leaves
     model = spec.model
@@ -53,6 +54,8 @@ def evaluate_lm(spec, cfg, params, *, batches=8, batch=8, seq=64, seed=0):
             toks, labels = synthetic_token_stream(
                 gen, batch=batch, seq_len=seq, vocab=cfg.vocab_size)
             b = {"tokens": toks}
+            if spec.family == "whisper":
+                b["frame_embeds"] = frame_embeds(gen, batch, LM_FRAMES, cfg)
             if getattr(cfg, "vision_tokens", 0):
                 b["vision_embeds"] = vision_embeds(gen, batch, cfg)
             logits, _ = model.forward(params, b, cfg, training=False)
@@ -203,6 +206,9 @@ def main(argv=None):
                     help="SFPL vs SFLv2 at matched fleet size")
     ap.add_argument("--arch", default="qwen3-8b", help="LM mode")
     ap.add_argument("--batches", type=int, default=8, help="LM mode")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM mode: tokens a sequence (whisper's smoke "
+                         "decoder has 32 learned positions)")
     ap.add_argument("--ckpt", help="LM mode: a launch.train --ckpt file")
     ap.add_argument("--sharded", action="store_true",
                     help="run both schemes over the process group's ranks")
@@ -268,7 +274,7 @@ def _main_lm(args):
     if args.ckpt:
         params, step = restore_checkpoint(args.ckpt, params)
         print(f"restored step {step}")
-    m = evaluate_lm(spec, cfg, params, batches=args.batches)
+    m = evaluate_lm(spec, cfg, params, batches=args.batches, seq=args.seq)
     print(f"{args.arch}: loss {m['loss']:.4f}  ppl {m['ppl']:.1f}  "
           f"token-acc {m['token_accuracy']:.3f}")
 

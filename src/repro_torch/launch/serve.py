@@ -1,21 +1,27 @@
 """Serving entry point of the port: batched decode with a KV cache
-(transformer family) or per-block recurrent states (xLSTM), the prompt
+(transformer family), per-block recurrent states (xLSTM), recurrent
+states and a local-attention ring cache (recurrentgemma), or a decoder
+cache beside precomputed cross-attention K / V (whisper), the prompt
 teacher-forced through the decode step token by token, then greedy or
 temperature sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         [--arch qwen3-8b | gemma-7b | minitron-8b | phi3-medium-14b |
          llama4-scout-17b-a16e | llama4-maverick-400b-a17b | qwen2-vl-7b |
-         xlstm-1.3b] [--batch 4] [--prompt-len 16] [--gen 16] [--full] \
-        [--device cpu]
+         xlstm-1.3b | recurrentgemma-9b | whisper-large-v3] [--batch 4] \
+        [--prompt-len 16] [--gen 16] [--full] [--device cpu]
 
 The smoke config by default, the architecture's full width with
 ``--full`` (the llama4 models' 107.8 B and 400.7 B parameters fit no
 single card). The prompt is text: qwen2-vl-7b decodes without vision
-embeddings, as the JAX package's serve does. Parameters are drawn from
-``--seed`` on the device itself (no weights are loaded), prompts and
-samples from a ``torch.Generator`` of the same seed. It runs on CUDA unless ``--device cpu`` is given, and raises
-when CUDA is absent and no device was asked for.
+embeddings, as the JAX package's serve does; whisper first encodes
+``WHISPER_FRAMES`` frame embeddings drawn from the seed and fills each
+layer's cross-attention K / V from them, and its prompt and generated
+tokens together must fit its learned positions. Parameters are drawn
+from ``--seed`` on the device itself (no weights are loaded), prompts,
+frames and samples from a ``torch.Generator`` of the same seed. It runs
+on CUDA unless ``--device cpu`` is given, and raises when CUDA is absent
+and no device was asked for.
 """
 from __future__ import annotations
 
@@ -27,6 +33,9 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
+
+# frames whisper encodes before decoding, as the JAX package's serve does
+WHISPER_FRAMES = 8
 
 
 def sample(logits, temperature, gen):
@@ -44,8 +53,6 @@ def serve(arch_id, *, batch=4, prompt_len=16, gen=16, smoke=True,
     batch of ``batch``. Returns the generated tokens (batch, gen) int64."""
     dev = resolve_device(device)
     spec = get_arch(arch_id)
-    if spec.family not in ("transformer", "xlstm"):
-        raise NotImplementedError(f"serving {spec.family} is not ported yet")
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     model = spec.model
     rng = torch.Generator(device=dev).manual_seed(seed)
@@ -54,9 +61,19 @@ def serve(arch_id, *, batch=4, prompt_len=16, gen=16, smoke=True,
         params = model.init(rng, cfg)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=rng, device=dev)
-        # the xLSTM's recurrent state ignores max_len and dtype
-        state = model.init_decode_state(cfg, batch, max_len,
-                                        dtype=torch.float32, device=dev)
+        if spec.family == "whisper":
+            frames = torch.randn((batch, WHISPER_FRAMES, cfg.d_model),
+                                 generator=rng, device=dev)
+            state = model.init_decode_state(cfg, batch, max_len,
+                                            dtype=torch.float32,
+                                            enc_frames=WHISPER_FRAMES,
+                                            device=dev)
+            state = model.prefill_cross(params, model.encode(
+                params, frames, cfg), state, cfg)
+        else:
+            # the xLSTM's recurrent state ignores max_len and dtype
+            state = model.init_decode_state(cfg, batch, max_len,
+                                            dtype=torch.float32, device=dev)
         decode = make_decode_step(spec, cfg)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -63,14 +63,19 @@ def train_lm(arch_id, *, steps=50, batch=8, seq=64, smoke=True, sfpl=False,
              device=None):
     """Train ``arch_id``'s smoke config (``smoke=False``: the full one) for
     ``steps`` steps on fresh batches of the synthetic token stream;
-    returns the per-step losses. Parameters, batches, a VLM's
-    ``vision_embeds`` and (``sfpl``) the collector permutations come from
-    one generator seeded by ``seed`` on the device; ``ckpt`` saves the
-    final params with the step count."""
+    returns the per-step losses. Parameters, batches, whisper's
+    ``frame_embeds`` (``LM_FRAMES`` frames), a VLM's ``vision_embeds`` and
+    (``sfpl``) the collector permutations come from one generator seeded
+    by ``seed`` on the device; ``ckpt`` saves the final params with the
+    step count. ``sfpl`` shuffles at the cut layer for the transformer
+    family; the other families run their plain loss, as in the JAX
+    package."""
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_arch
     from repro_torch.core.split_lm import make_collector_perm
-    from repro_torch.data.tokens import synthetic_token_stream, vision_embeds
+    from repro_torch.data.tokens import (LM_FRAMES, frame_embeds,
+                                         synthetic_token_stream,
+                                         vision_embeds)
     from repro_torch.device import resolve_device
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw, cosine_lr, sgd_momentum
@@ -93,6 +98,9 @@ def train_lm(arch_id, *, steps=50, batch=8, seq=64, smoke=True, sfpl=False,
         toks, labels = synthetic_token_stream(gen, batch=batch, seq_len=seq,
                                               vocab=cfg.vocab_size)
         batch_in = {"tokens": toks, "labels": labels}
+        if spec.family == "whisper":
+            batch_in["frame_embeds"] = frame_embeds(gen, batch, LM_FRAMES,
+                                                    cfg)
         if getattr(cfg, "vision_tokens", 0):
             batch_in["vision_embeds"] = vision_embeds(gen, batch, cfg)
         if sfpl:

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
 
@@ -204,6 +204,24 @@ class TransformerConfig:
 
 def _lcm(a, b):
     return a * b // math.gcd(a, b)
+
+
+def stacked_init(draw, n):
+    """``n`` draws of ``draw()`` stacked on a leading axis, as the JAX
+    package stacks its layer groups. Each draw is written into the
+    preallocated leaves before the next is made, so the peak is the stack
+    plus one draw; with ``n == 1`` the stacked leaves are views of the one
+    draw, with no copy."""
+    one = draw()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), one)
+    out = tree_map(lambda a: a.new_empty((n,) + a.shape), one)
+    for i in range(n):
+        if i:
+            one = draw()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, one)
+        del one
+    return out
 
 
 def maybe_remat(fn, enabled):

@@ -18,7 +18,8 @@ import math
 import torch
 
 from repro_torch.models.common import (TransformerConfig, chunked_lm_loss,
-                                       constrain_act, maybe_remat)
+                                       constrain_act, maybe_remat,
+                                       stacked_init)
 from repro_torch.nn.attention import (
     AttnConfig, attention_init, attention_apply, attention_decode,
     init_kv_cache)
@@ -63,9 +64,9 @@ def _layer_init(gen, cfg: TransformerConfig, kind):
 
 def init(gen, cfg: TransformerConfig):
     """Parameters drawn from ``gen`` on its device (a CUDA generator makes
-    them on the card). Groups are written one at a time into the stacked
-    leaves, so the peak is the model plus one group; a model of one group
-    is its own stacked leaves (a view), with no copy."""
+    them on the card), the layer groups stacked by ``stacked_init``: the
+    peak is the model plus one group, and a model of one group is its own
+    stacked leaves (a view), with no copy."""
     G = cfg.group_size
     if cfg.num_layers % G:
         raise ValueError(f"num_layers {cfg.num_layers} is not a multiple of "
@@ -80,21 +81,9 @@ def init(gen, cfg: TransformerConfig):
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        use_bias=False, dtype=dt)
 
-    def one_group():
-        return {f"sub{p}": _layer_init(gen, cfg, cfg.layer_kind(p))
-                for p in range(G)}
-
-    group = one_group()
-    if num_groups == 1:
-        params["layers"] = tree_map(lambda a: a.unsqueeze(0), group)
-        return params
-    layers = tree_map(lambda a: a.new_empty((num_groups,) + a.shape), group)
-    for g in range(num_groups):
-        if g:
-            group = one_group()
-        tree_map(lambda dst, src, g=g: dst[g].copy_(src), layers, group)
-        del group
-    params["layers"] = layers
+    params["layers"] = stacked_init(
+        lambda: {f"sub{p}": _layer_init(gen, cfg, cfg.layer_kind(p))
+                 for p in range(G)}, num_groups)
     return params
 
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.models.common import (chunked_lm_loss, constrain_act,
-                                       constrain_dims)
+                                       constrain_dims, stacked_init)
 from repro_torch.nn.init import normal_init, zeros
 from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
@@ -410,8 +410,8 @@ def _is_slstm(cfg, p_idx):
 
 def init(gen, cfg: XLSTMConfig):
     """Parameters drawn from ``gen`` on its device (a CUDA generator makes
-    them on the card). Groups are written one at a time into the stacked
-    leaves, so the peak is the model plus one group."""
+    them on the card), the groups stacked by ``stacked_init`` (the peak is
+    the model plus one group)."""
     G = cfg.slstm_every
     if cfg.num_layers % G:
         raise ValueError(f"num_layers {cfg.num_layers} is not a multiple of "
@@ -423,18 +423,10 @@ def init(gen, cfg: XLSTMConfig):
         "final_norm": rmsnorm_init(gen, cfg.d_model, dtype=cfg.pdtype()),
     }
 
-    def one_group():
-        return {f"sub{p}": (slstm_block_init if _is_slstm(cfg, p)
-                            else mlstm_block_init)(gen, cfg)
-                for p in range(G)}
-
-    group = one_group()
-    layers = tree_map(lambda a: a.new_empty((num_groups,) + a.shape), group)
-    for g in range(num_groups):
-        if g:
-            group = one_group()
-        tree_map(lambda dst, src, g=g: dst[g].copy_(src), layers, group)
-    params["layers"] = layers
+    params["layers"] = stacked_init(
+        lambda: {f"sub{p}": (slstm_block_init if _is_slstm(cfg, p)
+                             else mlstm_block_init)(gen, cfg)
+                 for p in range(G)}, num_groups)
     return params
 
 

@@ -1,5 +1,5 @@
 """BatchNorm with explicit running statistics (RMSD / CMSD at inference),
-and RMSNorm.
+LayerNorm and RMSNorm.
 
 Running statistics live in a separate ``state`` dict, as in the JAX
 package, so the aggregation policies can treat them apart from the
@@ -143,7 +143,22 @@ def batchnorm_act_apply(params, state, x, *, training, relu=True,
 
 
 # --------------------------------------------------------------------------
-# RMSNorm
+# LayerNorm / RMSNorm
+
+
+def layernorm_init(gen, dim, *, dtype=torch.float32):
+    return {"scale": ones(gen, (dim,), dtype),
+            "bias": zeros(gen, (dim,), dtype)}
+
+
+def layernorm_apply(params, x, *, eps=1e-5):
+    """LayerNorm over the last axis: mean and biased variance in f32, the
+    result in ``x.dtype``."""
+    x32 = x.float()
+    var, mu = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) / torch.sqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 def rmsnorm_init(gen, dim, *, dtype=torch.float32):

@@ -267,9 +267,9 @@ def test_eval_main_paper_lines_and_lm_raises(capsys):
     assert out[0].startswith("matched fleet (4 clients, sharded=False")
     assert out[1].lstrip().startswith("sfpl ") and "IID test" in out[1]
     assert out[2].lstrip().startswith("sflv2") and "non-IID test" in out[2]
-    # LM mode is ported; an architecture the port lacks still raises
-    with pytest.raises(KeyError, match="not yet ported"):
-        TEV.main(["--arch", "whisper-large-v3", "--device", "cpu"])
+    # LM mode is ported, for all ten architectures; an unknown one raises
+    with pytest.raises(KeyError, match="unknown arch"):
+        TEV.main(["--arch", "no-such-arch", "--device", "cpu"])
     TEV.main(["--device", "cpu", "--batches", "1"])
     out = capsys.readouterr().out
     assert out.startswith("qwen3-8b: loss ") and "token-acc" in out

@@ -3,7 +3,9 @@ running a one-step SFPL epoch, single-device and sharded (world size 1,
 int8 wire), a qwen3-8b smoke prefill through the kernel attention path, an
 xlstm-1.3b smoke prefill through the sLSTM kernel path, smoke prefills of
 llama4-scout, llama4-maverick and qwen2-vl (vision embeddings included)
-through the kernel attention path, a 3-token ``serve`` of each, a fault
+through the kernel attention path, recurrentgemma-9b and whisper-large-v3
+(frame embeddings included) through the kernel attention path, a 3-token
+``serve`` of each, a fault
 plan's draw, a train-state checkpoint round trip, ``retry_call``, ``multihost.host_value`` and one SFPL LM train
 step loads neither ``jax`` nor ``repro``; and the entry points run on CUDA
 by default, raising when it is absent."""
@@ -87,6 +89,19 @@ for arch in ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
     out = serve(arch, batch=2, prompt_len=4, gen=3, device="cpu")
     assert out.shape == (2, 3)
 
+for arch in ("recurrentgemma-9b", "whisper-large-v3"):
+    r_spec = get_arch(arch)
+    r_cfg = r_spec.make_smoke_config(attention_impl="kernel")
+    r_params = r_spec.model.init(torch.Generator().manual_seed(0), r_cfg)
+    r_batch = {"tokens": torch.randint(0, r_cfg.vocab_size, (2, 20))}
+    if r_spec.family == "whisper":
+        r_batch["frame_embeds"] = torch.randn(2, 16, r_cfg.d_model)
+    r_logits = make_prefill_step(r_spec, r_cfg)(r_params, r_batch)
+    assert r_logits.shape == (2, 1, r_cfg.vocab_size)
+    assert bool(torch.isfinite(r_logits).all())
+    out = serve(arch, batch=2, prompt_len=4, gen=3, device="cpu")
+    assert out.shape == (2, 3)
+
 import os, tempfile
 from repro_torch import checkpoint as CK
 from repro_torch.core.faults import FaultPlan, ensure_group_survivor
@@ -142,6 +157,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: train_paper(epochs=1),
                  lambda: serve("qwen3-8b", gen=1),
                  lambda: serve("xlstm-1.3b", gen=1),
+                 lambda: serve("recurrentgemma-9b", gen=1),
+                 lambda: serve("whisper-large-v3", gen=1),
                  lambda: E.sfpl_epoch(None, {}, {}, None, None, None,
                                       num_clients=1, batch_size=1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -150,12 +167,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_later_slice_knobs_raise_not_implemented():
     """The fault knobs, checkpoints and LM mode are ported; what still
-    raises: an architecture the port does not register yet (the
-    registry's ``KeyError``), and fault rates on the SFLv2 scheme (the
-    JAX launcher's ``ValueError``)."""
+    raises: an architecture the port does not register (all ten of the
+    JAX package's are; an unknown id raises the registry's ``KeyError``),
+    and fault rates on the SFLv2 scheme (the JAX launcher's
+    ``ValueError``)."""
     from repro_torch.launch.train import main
-    with pytest.raises(KeyError, match="not yet ported"):
-        main(["--arch", "whisper-large-v3", "--device", "cpu",
+    with pytest.raises(KeyError, match="unknown arch"):
+        main(["--arch", "no-such-arch", "--device", "cpu",
               "--steps", "1"])
     with pytest.raises(ValueError, match="requires --scheme sfpl"):
         main(["--paper", "--scheme", "sflv2", "--drop-rate", "0.2",

@@ -419,5 +419,5 @@ def test_later_slices_raise_naming_them():
         logits, _ = T.forward(T.init(gen, c), batch, c)
         assert logits.shape == (1, 4, 64)
         assert bool(torch.isfinite(logits).all()), kw
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("recurrentgemma-9b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
