@@ -54,7 +54,12 @@ whisper-large-v3, its prefill over 1,500 frames and 448 tokens with 64 K7
 launches (the encoder's non-causal, the decoder's causal), decode against
 a whole 1,500-frame cross cache, 2-layer f32 checks as phase 26's
 through ``encode`` and ``prefill_cross``, and ``serve(smoke=False)``
-(phase 27). Each phase prints its seconds. It
+(phase 27); then the sharded LM: a 2-layer qwen3-8b prefill through K7
+with its params as DTensors on the 1x1 host mesh, bit for bit the plain
+prefill's, the dry run's FLOPs and peak bytes on a 1x1 mesh against the
+real full-depth prefill's and phase 21's 2-layer AdamW train step's, and
+two dry runs on the 16x16 mesh of a fake
+256-rank group (phase 28). Each phase prints its seconds. It
 prints, as its last line, ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script
 exits non-zero without that line. Without CUDA, or outside a checkout, it
@@ -1491,6 +1496,9 @@ def prefill_matmul_flops(spec, cfg, params, b, s):
                            if a.dim() == 3)
 
 
+PREFILL_WALL = {}    # arch -> warm prefill seconds (phases 8, 11, 14, ...)
+
+
 def full_prefill(arch, b=LM_BATCH, s=LM_SEQ, **overrides):
     """``arch`` at full width (``overrides``: a depth cut), its parameters
     (f32, or its config's dtype) drawn on the card from seed 0, bf16
@@ -1533,6 +1541,7 @@ def full_prefill(arch, b=LM_BATCH, s=LM_SEQ, **overrides):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     warm = min(walls)
+    PREFILL_WALL[arch] = warm
     n_tok = b * s
     frames = (f", {b * WHISPER_FRAMES / warm:.0f} encoder frames/s"
               if spec.family == "whisper" else "")
@@ -2981,6 +2990,284 @@ def whisper(smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 28: the sharded LM (DTensor), its dry run and roofline
+
+# The dry run's eager peak (argument + temp bytes: an eager step donates
+# nothing) against the card's max_memory_allocated over the same step:
+# within this share of the real peak. Phase 28b on an H100 measured the
+# prefill's two 60.50 GiB apart by under 0.1 %; the margin covers the
+# caching allocator's 512-byte rounding and cuBLAS's workspace, which the
+# dry run does not see.
+DRYRUN_MEM_TOL = 0.02
+
+
+def _host_group():
+    """A world-size-1 NCCL group (none may be up), for a real 1x1 mesh."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def dtensor_prefill(smi):
+    """28a: qwen3-8b at full width, 2 layers, bf16 compute, attention
+    through K7, params as DTensors on ``make_host_mesh()``: its logits
+    equal the plain prefill's bit for bit (a 1x1 layout moves nothing)
+    and K7 launches through the DTensor path (``local_region`` hands the
+    kernel local tensors)."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.sharding import rules as R
+    _host_group()
+    mesh = make_host_mesh("cuda")
+    axes = R.mesh_axes_of(mesh)
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config(num_layers=2, attention_impl="kernel")
+    params = lm_init(cfg, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device=DEV)}
+    with torch.no_grad():
+        want = make_prefill_step(spec, cfg)(params, batch)
+        scfg = dataclasses.replace(cfg, mesh_axes=axes)
+        dparams = R.distribute(params, R.param_shardings(params, mesh))
+        dbatch = R.distribute(batch, R.batch_shardings(batch, mesh))
+        step = make_prefill_step(spec, scfg)
+        step(dparams, dbatch)                     # DTensor's first planning
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = step(dparams, dbatch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.LAUNCHES["flash_attention"]
+    if not isinstance(got, DTensor):
+        raise AssertionError("the sharded prefill returned a plain tensor")
+    got = got.full_tensor()
+    same = bool(torch.equal(got, want))
+    print(f"DTensor prefill on the 1x1 mesh {axes}: {wall:.3f} s warm, "
+          f"{launches} K7 launches; logits equal to the plain prefill's "
+          f"bit for bit: {same} (max |diff| "
+          f"{float((got - want).abs().max()):.3e})")
+    if not same:
+        raise AssertionError("the DTensor prefill differs from the plain one")
+    if launches != k7_per_prefill(spec, cfg):
+        raise AssertionError(f"the DTensor prefill launched K7 {launches} "
+                             f"times, not {k7_per_prefill(spec, cfg)}")
+    del params, dparams, got, want
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_against_real(smi):
+    """28b: the dry run's machinery on a 1x1 "cuda" mesh for qwen3-8b's
+    prefill at full depth, B 4 x S 4096, on the shipped (plain, ``xla``)
+    attention path, against the same prefill run for real: FLOPs (the
+    real one under ``FlopCounterMode``) and the peak bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.roofline.analysis import HW
+    shape = InputShape("prefill_4k", LM_SEQ, LM_BATCH, "prefill")
+    t0 = time.perf_counter()
+    res = DR.lower_one("qwen3-8b", shape, mesh_shape=(1, 1), device="cuda")
+    trace_s = time.perf_counter() - t0
+    m = res["memory"]
+    pred_flops = res["cost"]["flops"]
+    # the eager peak: nothing is donated (and a prefill aliases nothing)
+    pred_peak = m["argument_bytes"] + m["temp_bytes"]
+    print(f"dry run ({trace_s:.1f} s of host work): {DR.summarize(res)}")
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config()
+    free_device_memory("phase 28a")
+    base = torch.cuda.memory_allocated()
+    params = lm_init(cfg, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device=DEV)}
+    step = make_prefill_step(spec, cfg)
+    with torch.inference_mode():
+        with FlopCounterMode(display=False) as fc:
+            step(params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    real_flops = fc.get_total_flops()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the plain-path prefill gave non-finite logits")
+    del params, logits
+    torch.cuda.empty_cache()
+    rel = abs(pred_flops - real_flops) / real_flops
+    print(f"FLOPs a device: dry run {pred_flops:.6e}, the real prefill "
+          f"under FlopCounterMode {real_flops:.6e} (relative difference "
+          f"{rel:.2e}, bound 1e-6)")
+    added = peak - m["argument_bytes"]
+    mem_rel = (pred_peak - peak) / peak
+    print(f"peak bytes: dry run argument {m['argument_bytes'] / 2**30:.3f} "
+          f"+ temp {m['temp_bytes'] / 2**30:.3f} = "
+          f"{pred_peak / 2**30:.3f} GiB (alias "
+          f"{m['alias_bytes'] / 2**30:.3f}); "
+          f"real max_memory_allocated over the arguments "
+          f"{peak / 2**30:.3f} GiB (of which the step added "
+          f"{added / 2**30:.3f}); prediction off by {100 * mem_rel:+.2f} % "
+          f"of the real peak, {100 * (m['temp_bytes'] - added) / added:+.2f}"
+          f" % of the added bytes (bound {100 * DRYRUN_MEM_TOL:.0f} % of "
+          f"the real peak)")
+    print(f"plain-path prefill (xla attention, f32 scores) {wall:.3f} s warm")
+    plain_s = {"compute": pred_flops / HW["peak_flops"],
+               "memory": res["cost"]["bytes_accessed"] / HW["hbm_bw"]}
+    k7_s = PREFILL_WALL.get("qwen3-8b")
+    print(f"roofline terms of this prefill ({smi}): compute "
+          f"{plain_s['compute']:.4f} s, memory {plain_s['memory']:.4f} s "
+          f"(unfused eager bytes {res['cost']['bytes_accessed']:.4e}); "
+          f"measured: this plain-path prefill {wall:.3f} s, phase 8's K7 "
+          f"prefill {k7_s if k7_s is None else round(k7_s, 3)} s")
+    if rel > 1e-6:
+        raise AssertionError(f"dry-run FLOPs off by {rel:.2e}")
+    if not 0.5 <= pred_peak / peak <= 2.0:
+        raise AssertionError("the dry run's peak is off by more than 2x")
+    if abs(mem_rel) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"the dry run's peak is off by "
+                             f"{100 * mem_rel:+.2f} %")
+
+
+def dryrun_train_against_real(smi):
+    """28b, train: the dry run on a 1x1 "cuda" mesh for phase 21's
+    qwen3-8b step (2 layers, B 2 x S 256, f32 compute, AdamW) against the
+    same step run for real: FLOPs, the argument bytes, the bytes the step
+    adds at its peak (the new params, moments and gradients with the
+    activations: nothing is donated in eager PyTorch), and ``alias``, the
+    new params and moments that a donating runtime writes over the
+    arguments (``argument + temp - alias``, the dry run's summary)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    shape = InputShape("train_256", 256, 2, "train")
+    over = {"num_layers": 2, "compute_dtype": "float32"}
+    opt = adamw(1e-3)
+    t0 = time.perf_counter()
+    res = DR.lower_one("qwen3-8b", shape, mesh_shape=(1, 1), device="cuda",
+                       optimizer=opt, cfg_overrides=over)
+    trace_s = time.perf_counter() - t0
+    m = res["memory"]
+    print(f"dry run of the train step ({trace_s:.1f} s of host work): "
+          f"{DR.summarize(res)}")
+    spec = get_arch("qwen3-8b")
+    cfg = spec.make_config(**over)
+    free_device_memory("phase 28b's prefill")
+    base = torch.cuda.memory_allocated()
+    params = lm_init(cfg, seed=5)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    batch = {k: torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                              generator=gen, device=DEV)
+             for k, t in input_specs(spec, cfg, shape).items()}
+    real_args = torch.cuda.memory_allocated() - base
+    step = make_train_step(spec, cfg, opt)
+    out = step(params, opt_state, 0, batch)     # cuBLAS workspaces, warm
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, opt_state, 0, batch)
+    del out
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    new_p, new_s, _, loss = step(params, opt_state, 0, batch)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - before
+    donated = sum(t.nbytes for t in tree_leaves(new_p) + tree_leaves(new_s))
+    finite = math.isfinite(float(loss))
+    del params, opt_state, new_p, new_s, loss, batch, step
+    torch.cuda.empty_cache()
+    real_flops = fc.get_total_flops()
+    rel = abs(res["cost"]["flops"] - real_flops) / real_flops
+    pred = m["argument_bytes"] + m["temp_bytes"]
+    real = real_args + added
+    mem_rel = (pred - real) / real
+    gib = lambda n: f"{n / 2**30:.3f}"
+    print(f"train step FLOPs: dry run {res['cost']['flops']:.6e}, the real "
+          f"step under FlopCounterMode {real_flops:.6e} (relative "
+          f"difference {rel:.2e}, bound 1e-6)")
+    print(f"train step bytes ({smi}): arguments dry run "
+          f"{gib(m['argument_bytes'])}, real {gib(real_args)} GiB; added "
+          f"at the peak: dry run temp {gib(m['temp_bytes'])}, real "
+          f"{gib(added)} GiB; eager peak argument + temp {gib(pred)} "
+          f"against the real {gib(real)} GiB: off by {100 * mem_rel:+.2f} "
+          f"% (bound {100 * DRYRUN_MEM_TOL:.0f} %); alias "
+          f"{gib(m['alias_bytes'])} GiB against the real step's new params "
+          f"and moments {gib(donated)} GiB, so a donating runtime's peak "
+          f"is {gib(pred - m['alias_bytes'])} GiB")
+    if not finite:
+        raise AssertionError("the train step's loss is not finite")
+    if rel > 1e-6:
+        raise AssertionError(f"the train step's dry-run FLOPs are off by "
+                             f"{rel:.2e}")
+    if not 0.5 <= pred / real <= 2.0:
+        raise AssertionError("the train step's dry-run peak is off by more "
+                             "than 2x")
+    if abs(mem_rel) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"the train step's dry-run peak is off by "
+                             f"{100 * mem_rel:+.2f} %")
+    if m["alias_bytes"] != donated:
+        raise AssertionError("the dry run's alias bytes are not the new "
+                             "params and moments")
+
+
+def production_dryruns():
+    """28c: the JAX package's multi-arch dry-run pairs on the 16x16 mesh
+    of a fake 256-rank group: qwen3-8b train_4k and llama4-scout
+    decode_32k."""
+    from repro_torch.launch import dryrun as DR
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for arch, shape in (("qwen3-8b", "train_4k"),
+                        ("llama4-scout-17b-a16e", "decode_32k")):
+        t0 = time.perf_counter()
+        res = DR.lower_one(arch, shape, device="cuda")
+        print(DR.summarize(res))
+        coll = {k: (v["count"], round(v["bytes"] / 2**30, 3))
+                for k, v in res["collectives"].items()}
+        m = res["memory"]
+        print(f"  {time.perf_counter() - t0:.1f} s; memory "
+              f"{ {k: round(v / 2**30, 3) for k, v in m.items()} } GiB "
+              f"(eager, nothing donated: argument + temp "
+              f"{(m['argument_bytes'] + m['temp_bytes']) / 2**30:.3f} GiB)"
+              f"; bytes accessed {res['cost']['bytes_accessed']:.4e}; "
+              f"collectives (count, GiB) {coll}")
+        if not res["cost"]["flops"] or res["devices"] != 256:
+            raise AssertionError(f"{arch} {shape}: an empty dry run")
+
+
+def sharded_lm(smi):
+    phase("28. sharded LM (DTensor), dry run and roofline: (a) qwen3-8b 2 "
+          "layers through K7 with DTensor params on the 1x1 host mesh, "
+          "(b) the dry run on a 1x1 cuda mesh against the real full-depth "
+          "prefill and phase 21's 2-layer AdamW train step, (c) qwen3-8b "
+          "train_4k and llama4-scout decode_32k on the 16x16 mesh of a "
+          "fake 256-rank group")
+    print(f"card: {smi}")
+    launches = dtensor_prefill(smi)
+    dryrun_against_real(smi)
+    dryrun_train_against_real(smi)
+    production_dryruns()
+    return launches
+
+
 def main():
     smi = device_and_build()
     measured = kernels_vs_plain()
@@ -3009,6 +3296,7 @@ def main():
     launches_vl = qwen2_vl(smi)
     launches_rg = recurrentgemma(smi)
     launches_w = whisper(smi)
+    launches_dt = sharded_lm(smi)
     phase("done")
     path = {name: "phase 3 (single-device SFPL epoch)"
             for name in SINGLE_DEVICE}
@@ -3017,7 +3305,9 @@ def main():
         launches[name] = launches_sharded[name]
         path[name] = "phase 6 (sharded SFPL epoch)"
     launches["flash_attention"] = launches_lm["flash_attention"]
-    path["flash_attention"] = "phase 8 (one qwen3-8b prefill)"
+    path["flash_attention"] = (f"phase 8 (one qwen3-8b prefill); phase "
+                               f"28a: {launches_dt} more through DTensor "
+                               f"params (2 layers)")
     launches["rmsnorm"] = launches_lm["rmsnorm"]
     path["rmsnorm"] = "phase 8b (rmsnorm_apply(use_kernel=True))"
     launches["slstm_scan"] = launches_x["slstm_scan"]

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -39,6 +39,13 @@ class ArchSpec:
     @property
     def model(self):
         return importlib.import_module(_FAMILIES[self.family])
+
+    def skip_reason(self, shape: InputShape) -> Optional[str]:
+        """Why the architecture study skips ``shape``, or None."""
+        if shape.name == "long_500k" and not self.supports_long_context:
+            return ("pure global-attention architecture: 500k-token decode "
+                    "requires a sub-quadratic / windowed variant")
+        return None
 
 
 def register(spec: ArchSpec):

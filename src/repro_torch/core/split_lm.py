@@ -23,13 +23,13 @@ def sfpl_lm_loss(model, params, batch_in, cfg, *, perm, cut_groups=1,
     to follow their smashed data (the paper ships (A_k, Y_k) pairs
     through the collector together). Returns ``(loss, {"xent", "aux"})``.
     """
-    from repro_torch.models.common import chunked_lm_loss
+    from repro_torch.models.common import chunked_lm_loss, take_rows
 
     hidden, aux = model.forward(params, batch_in, cfg, training=training,
                                 collector_perm=perm, cut_groups=cut_groups,
                                 return_hidden=True)
     labels = batch_in["labels"]
-    labels = labels.index_select(0, perm.to(labels.device))
+    labels = take_rows(labels, perm)
     loss = chunked_lm_loss(hidden, labels,
                            lambda xc: model.unembed(params, xc, cfg))
     coef = getattr(cfg, "router_aux_coef", 0.0)

@@ -2,7 +2,21 @@
 and their checks."""
 from __future__ import annotations
 
-from repro_torch.tree import grads as tree_grads, with_grad
+import contextlib
+
+from repro_torch.sharding.dtensor import is_dtensor
+from repro_torch.tree import grads as tree_grads, tree_leaves, with_grad
+
+
+def sharded_scope(params):
+    """The scope a step runs in: with DTensor params (a sharded step, see
+    ``repro_torch.sharding``) the tensors the model makes itself
+    (positions, masks, the online softmax's state) count as replicated
+    (``implicit_replication``); with plain params, nothing."""
+    if not any(is_dtensor(t) for t in tree_leaves(params)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def make_train_step(spec, cfg, optimizer, *, sfpl=False, cut_groups=1):
@@ -27,10 +41,11 @@ def make_train_step(spec, cfg, optimizer, *, sfpl=False, cut_groups=1):
         return model.loss_fn(params, clean, cfg, training=True)
 
     def train_step(params, opt_state, step, batch):
-        p = with_grad(params)
-        loss, _ = loss_of(p, batch)
-        new_params, new_opt = optimizer.update(tree_grads(loss, p),
-                                               opt_state, params, step)
+        with sharded_scope(params):
+            p = with_grad(params)
+            loss, _ = loss_of(p, batch)
+            new_params, new_opt = optimizer.update(tree_grads(loss, p),
+                                                   opt_state, params, step)
         return new_params, new_opt, step + 1, loss.detach()
 
     return train_step
@@ -42,8 +57,9 @@ def make_prefill_step(spec, cfg):
     def prefill_step(params, batch):
         # serving prefill: only the final position's logits seed decode;
         # (B, S, V) logits would dominate memory
-        logits, _ = model.forward(params, batch, cfg, training=False,
-                                  last_token_only=True)
+        with sharded_scope(params):
+            logits, _ = model.forward(params, batch, cfg, training=False,
+                                      last_token_only=True)
         return logits
 
     return prefill_step
@@ -53,7 +69,8 @@ def make_decode_step(spec, cfg):
     model = spec.model
 
     def decode_step(params, state, tokens, cur_pos):
-        return model.decode_step(params, state, tokens, cfg,
-                                 cur_pos=cur_pos)
+        with sharded_scope(params):
+            return model.decode_step(params, state, tokens, cfg,
+                                     cur_pos=cur_pos)
 
     return decode_step

@@ -1,6 +1,7 @@
 """Shared model pieces: the compute policy, the losses and accuracy, the
-transformer config, rematerialisation, and the sharding constraints
-(identities on one device)."""
+transformer config, rematerialisation, and the models' sharding
+constraints (DTensor redistributions under ``mesh_axes`` through
+``repro_torch.sharding.dtensor``, identities on plain tensors)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,10 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.dtensor import (apply_spec, dims_spec, dp_tp,
+                                          is_dtensor, local_region,
+                                          shard_start)
+from repro_torch.sharding.rules import mesh_axes_of
 from repro_torch.tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
@@ -64,6 +69,52 @@ def valid_count(valid, reduce=None):
     return reduce(valid.sum().to(torch.float32)).clamp_min(1)
 
 
+def _logsumexp(logits):
+    """``logsumexp`` over the last dim. On a DTensor (the vocab may be
+    sharded) from a max and a sum, which shard along the vocab, where
+    DTensor's ``logsumexp`` gathers it whole."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(logits - m).sum(dim=-1,
+                                                   keepdim=True)))[..., 0]
+
+
+def _pick(logits, labels):
+    """``logits[..., labels]``. On a DTensor whose vocab is sharded each
+    device picks from its own columns (zero where the label is another
+    device's) and the picks are summed over the vocab's shards, which
+    adds exact zeros to the one picked value."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    vocab = [m for m, p in enumerate(pl) if p.is_shard(last)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, [
+        Replicate() if m in vocab else p
+        for m, p in enumerate(labels.placements)])
+    lo, cols = shard_start(mesh, vocab, logits.shape[-1])
+
+    def pick(x, i):
+        j = i - lo
+        hit = (j >= 0) & (j < cols)
+        got = x.gather(-1, j.clamp(0, cols - 1)[..., None])[..., 0]
+        return got * hit.to(got.dtype)
+
+    out_pl = [Partial() if m in vocab else p for m, p in enumerate(pl)]
+    return local_map(pick, out_pl, in_placements=(tuple(pl),
+                                                  tuple(labels.placements)),
+                     in_grad_placements=(tuple(pl),
+                                         tuple(labels.placements)))(
+        logits, labels)
+
+
 def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL,
                           reduce=None):
     """logits (..., V); labels (...,) int. Mean over non-ignored rows, with
@@ -75,8 +126,8 @@ def softmax_cross_entropy(logits, labels, *, ignore=IGNORE_LABEL,
     labels = labels.long()
     valid = labels != ignore
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, safe[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    ll = _pick(logits, safe)
     loss = torch.where(valid, lse - ll, torch.zeros_like(lse))
     return loss.sum() / valid_count(valid, reduce)
 
@@ -109,8 +160,8 @@ def chunked_lm_loss(hidden, labels, unembed_fn, *, chunks=DEFAULT_CE_CHUNKS,
         logits = unembed_fn(xc).float()
         valid = lc != ignore
         safe = torch.where(valid, lc, torch.zeros_like(lc))
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, safe[..., None])[..., 0]
+        lse = _logsumexp(logits)
+        ll = _pick(logits, safe)
         loss = torch.where(valid, lse - ll, torch.zeros_like(lse))
         return loss.sum(), valid.sum()
 
@@ -233,25 +284,55 @@ def maybe_remat(fn, enabled):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def constrain_act(x, cfg, kind="residual"):
-    """Activation sharding constraint: the identity on one device
-    (``cfg.mesh_axes`` None). The sharded LM is a later slice."""
-    del kind
-    if getattr(cfg, "mesh_axes", None):
-        raise NotImplementedError(
-            "mesh_axes: the sharded LM belongs to a later slice of the port")
-    return x
+def take_rows(x, perm):
+    """``x[perm]`` along the batch dim: SFPL's collector shuffle of the
+    smashed data (and their labels). On a DTensor the batch is gathered
+    whole (the collector's exchange), each device permutes it, and the
+    result is laid out as ``x`` was; its backward is the de-shuffle."""
+    if not is_dtensor(x):
+        return x.index_select(0, perm.to(x.device))
+    mesh_axes = mesh_axes_of(x.device_mesh)
+    whole = (None,) * x.dim()
+    out = local_region(lambda x_, p_: x_.index_select(0, p_), mesh_axes,
+                       [whole, (None,)], whole)(x, perm)
+    return out.redistribute(x.device_mesh, x.placements)
 
 
 def constrain_dims(x, mesh_axes, roles):
-    """Per-dim sharding constraint (``roles``: "dp" | "tp" | None per
-    dim): the identity on one device (``mesh_axes`` None). The sharded LM
-    is a later slice."""
-    del roles
-    if mesh_axes:
-        raise NotImplementedError(
-            "mesh_axes: the sharded LM belongs to a later slice of the port")
-    return x
+    """Per-dim sharding constraint. ``roles``: "dp" | "tp" | None per dim,
+    each guarded by divisibility. The identity without ``mesh_axes`` or
+    on a plain tensor; a DTensor is redistributed (:func:`apply_spec`)."""
+    if not mesh_axes:
+        return x
+    return apply_spec(x, mesh_axes, dims_spec(x.shape, mesh_axes, roles))
+
+
+def constrain_act(x, cfg, kind="residual"):
+    """Sharding constraints on activations (the identity when
+    ``cfg.mesh_axes`` is unset or ``x`` is a plain tensor; a dim the axis
+    does not divide stays replicated).
+
+    kinds: "residual" (B, S, d) -> (dp, "model", None)  [sequence parallel]
+           "logits"   (B, S, V) -> (dp, None, "model")  [vocab sharded]
+    """
+    axes = getattr(cfg, "mesh_axes", None)
+    if not axes:
+        return x
+    dp, dp_size, tp = dp_tp(axes)
+    b_ok = x.shape[0] % dp_size == 0 and x.shape[0] >= dp_size
+    spec = [dp if b_ok else None, None, None]
+    if kind == "residual":
+        if x.shape[1] % tp == 0 and x.shape[1] >= tp:
+            spec[1] = "model"
+        elif not b_ok and x.shape[1] % (dp_size * tp) == 0:
+            # batch 1, long context: the sequence over everything
+            spec[1] = dp + ("model",)
+    elif kind == "logits":
+        if x.shape[-1] % tp == 0:
+            spec[-1] = "model"
+        if not b_ok and x.shape[1] % dp_size == 0 and x.shape[1] >= dp_size:
+            spec[1] = dp
+    return apply_spec(x, axes, spec)
 
 
 def count_params(params):

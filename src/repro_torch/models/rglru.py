@@ -41,6 +41,7 @@ from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
     embedding_attend)
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
+from repro_torch.sharding.dtensor import dims_spec, gather_rows, local_region
 from repro_torch.tree import tree_map
 
 
@@ -162,7 +163,11 @@ def rglru_apply(p, x, *, c=8.0, mesh_axes=None):
     a, b = _rglru_gates(p, x, c)
     a = constrain_dims(a, mesh_axes, ("dp", None, "tp"))
     b = constrain_dims(b, mesh_axes, ("dp", None, "tp"))
-    _, h = associative_scan(a, b)
+    # the scan runs along the sequence, whole on each device
+    spec = dims_spec(a.shape, mesh_axes, ("dp", None, "tp")) \
+        if mesh_axes else None
+    h = local_region(lambda a_, b_: associative_scan(a_, b_)[1], mesh_axes,
+                     [spec, spec], spec)(a, b)
     return h.to(x.dtype)
 
 
@@ -224,7 +229,7 @@ def _mlp_apply(p, x, cfg: RGLRUConfig):
 
 
 def rec_block_apply(p, x, cfg: RGLRUConfig):
-    h = _norm(p["norm"], x, cfg)
+    h = gather_rows(_norm(p["norm"], x, cfg))   # once for both branches
     main = constrain_dims(dense_apply(p["up_main"], h), cfg.mesh_axes,
                           ("dp", None, "tp"))
     gate = _gelu(dense_apply(p["up_gate"], h))

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.models.common import (TransformerConfig, chunked_lm_loss,
                                        constrain_act, maybe_remat,
-                                       stacked_init)
+                                       stacked_init, take_rows)
 from repro_torch.nn.attention import (
     AttnConfig, attention_init, attention_apply, attention_decode,
     init_kv_cache)
@@ -110,9 +110,13 @@ def _ffn(lp, h, cfg: TransformerConfig, kind):
     """The layer's MLP or MoE on ``h``: (y, the MoE's aux dict or None)."""
     if not kind["moe"]:
         return mlp_apply(lp["mlp"], h, act=cfg.act), None
+    dp_groups = 1
+    for a, n in cfg.mesh_axes or ():
+        if a != "model":
+            dp_groups *= n
     return moe_apply(lp["moe"], h, num_experts=cfg.num_experts,
                      capacity_factor=cfg.capacity_factor, act=cfg.act,
-                     mesh_axes=cfg.mesh_axes)
+                     dp_groups=dp_groups, mesh_axes=cfg.mesh_axes)
 
 
 def _layer_apply(lp, x, cfg: TransformerConfig, kind, positions, training):
@@ -247,7 +251,7 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     if collector_perm is not None:
         # client-side portion -> smashed data -> global collector shuffle
         x, aux1 = run_groups(x, 0, cut_groups)
-        x = x.index_select(0, collector_perm.to(x.device))
+        x = take_rows(x, collector_perm)
         x, aux2 = run_groups(x, cut_groups, num_groups)
         aux = aux1 + aux2
     else:

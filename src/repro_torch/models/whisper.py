@@ -36,6 +36,7 @@ from repro_torch.nn.linear import (
     dense_apply, embedding_init, embedding_apply, embedding_attend)
 from repro_torch.nn.mlp import mlp_init, mlp_apply
 from repro_torch.nn.norm import layernorm_init, layernorm_apply
+from repro_torch.sharding.dtensor import gather_rows, split_last
 from repro_torch.tree import tree_map
 
 
@@ -184,8 +185,9 @@ def encode(params, frame_embeds, cfg: WhisperConfig, *, training=False):
 def _cross_kv(ap, enc_states, cfg: WhisperConfig):
     B, Sf, _ = enc_states.shape
     K, D = cfg.num_kv_heads, cfg.head_dim
-    k = dense_apply(ap["wk"], enc_states).reshape(B, Sf, K, D)
-    v = dense_apply(ap["wv"], enc_states).reshape(B, Sf, K, D)
+    enc_states = gather_rows(enc_states)        # once for k and v
+    k = split_last(dense_apply(ap["wk"], enc_states), K, D)
+    v = split_last(dense_apply(ap["wv"], enc_states), K, D)
     return k, v
 
 

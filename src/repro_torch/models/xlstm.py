@@ -36,6 +36,9 @@ from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
     embedding_attend)
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
+from repro_torch.sharding.dtensor import (dims_spec, gather_rows,
+                                          local_region, pointwise,
+                                          split_last)
 from repro_torch.tree import tree_map
 
 GATES = ("i", "f", "z", "o")
@@ -128,7 +131,7 @@ def _mlstm_chunk_scan(q, k, v, i_pre, logf, *, chunk, mesh_axes=None):
                          f"{chunk}")
     dev = q.device
     f32 = torch.float32
-    C = torch.zeros((B, H, D, D), dtype=f32, device=dev)
+    C = torch.zeros((B, H, D, v.shape[-1]), dtype=f32, device=dev)
     n = torch.zeros((B, H, D), dtype=f32, device=dev)
     m = torch.full((B, H), -1e30, dtype=f32, device=dev)
     above = torch.ones((chunk, chunk), dtype=torch.bool,
@@ -170,6 +173,23 @@ def _mlstm_chunk_scan(q, k, v, i_pre, logf, *, chunk, mesh_axes=None):
     return torch.cat(hs, dim=2)
 
 
+def _sharded_chunk_scan(q, k, v, i_pre, logf, *, chunk, mesh_axes):
+    """:func:`_mlstm_chunk_scan`; on DTensors it runs on each device's
+    shards in the layout the JAX package constrains its state to: the
+    batch over dp, the value dim over "model" (the keys, queries and
+    gates whole, their gradients pending sums over the value shards).
+    The chunk loop is then local work, not a DTensor op a step."""
+    if not mesh_axes:
+        return _mlstm_chunk_scan(q, k, v, i_pre, logf, chunk=chunk)
+    dp, vd = dims_spec((q.shape[0], v.shape[-1]), mesh_axes, ("dp", "tp"))
+    whole, gate = (dp, None, None, None), (dp, None, None)
+    return local_region(
+        lambda *a: _mlstm_chunk_scan(*a, chunk=chunk, mesh_axes=mesh_axes),
+        mesh_axes, [whole, whole, (dp, None, None, vd), gate, gate],
+        (dp, None, None, vd),
+        partial_grads=(0, 1, 3, 4) if vd else ())(q, k, v, i_pre, logf)
+
+
 def mlstm_recurrent_step(state, q_t, k_t, v_t, i_pre, logf):
     """One decode step. state: (C (B,H,D,D), n (B,H,D), m (B,H)) f32;
     q/k/v_t: (B,H,D) (q pre-scaled); i_pre/logf: (B,H)."""
@@ -199,7 +219,7 @@ def blockdiag_init(gen, dim, blocksize, dtype):
 def blockdiag_apply(p, x):
     """x: (..., dim) -> block-diagonal linear, dim = nb * bs."""
     nb, bs, _ = p["w"].shape
-    xs = x.reshape(x.shape[:-1] + (nb, bs))
+    xs = split_last(x, nb, bs)
     y = torch.einsum("...nb,nbc->...nc", xs, p["w"].to(x.dtype))
     return y.reshape(x.shape)
 
@@ -233,30 +253,30 @@ def _mlstm_qkv_gates(p, x_in, cfg: XLSTMConfig, conv_out):
     H, D = cfg.num_heads, cfg.head_dim
 
     def heads(a):
-        return a.reshape(B, S, H, D).transpose(1, 2)
+        return split_last(a, H, D).transpose(1, 2)
     q = heads(blockdiag_apply(p["wq"], conv_out))
     k = heads(blockdiag_apply(p["wk"], conv_out))
     v = heads(blockdiag_apply(p["wv"], x_in))
     q = q / math.sqrt(D)
     gates = dense_apply(p["gates"], conv_out.float())        # (B,S,2H) f32
     i_pre = gates[..., :H].transpose(1, 2)                   # (B,H,S)
-    logf = F.logsigmoid(gates[..., H:].transpose(1, 2))
+    logf = pointwise(F.logsigmoid, gates[..., H:].transpose(1, 2))
     return q, k, v, i_pre.float(), logf.float()
 
 
 def mlstm_block_apply(p, x, cfg: XLSTMConfig):
     """x: (B, S, d_model) -> (B, S, d_model) residual branch output."""
     B, S, _ = x.shape
-    h = rmsnorm_apply(p["norm"], x, eps=cfg.norm_eps)
+    h = gather_rows(rmsnorm_apply(p["norm"], x, eps=cfg.norm_eps))
     main = constrain_dims(dense_apply(p["up_main"], h), cfg.mesh_axes,
                           ("dp", None, "tp"))
     gate = constrain_dims(dense_apply(p["up_gate"], h), cfg.mesh_axes,
                           ("dp", None, "tp"))
     conv_out = F.silu(causal_conv_apply(p["conv"], main))
     q, k, v, i_pre, logf = _mlstm_qkv_gates(p, main, cfg, conv_out)
-    hcell = _mlstm_chunk_scan(q, k, v, i_pre, logf,
-                              chunk=min(cfg.chunk_len, S),
-                              mesh_axes=cfg.mesh_axes)
+    hcell = _sharded_chunk_scan(q, k, v, i_pre, logf,
+                                chunk=min(cfg.chunk_len, S),
+                                mesh_axes=cfg.mesh_axes)
     hcell = hcell.transpose(1, 2).reshape(B, S, cfg.d_inner)
     hcell = rmsnorm_apply(p["head_norm"], hcell.to(x.dtype),
                           eps=cfg.norm_eps)
@@ -273,12 +293,12 @@ def mlstm_block_step(p, x_t, state, cfg: XLSTMConfig):
     conv_y, new_buf = causal_conv_step(p["conv"], main, state["conv_buf"])
     conv_out = F.silu(conv_y)
     H, D = cfg.num_heads, cfg.head_dim
-    q = blockdiag_apply(p["wq"], conv_out).reshape(B, H, D) / math.sqrt(D)
-    k = blockdiag_apply(p["wk"], conv_out).reshape(B, H, D)
-    v = blockdiag_apply(p["wv"], main).reshape(B, H, D)
+    q = split_last(blockdiag_apply(p["wq"], conv_out), H, D) / math.sqrt(D)
+    k = split_last(blockdiag_apply(p["wk"], conv_out), H, D)
+    v = split_last(blockdiag_apply(p["wv"], main), H, D)
     gates = dense_apply(p["gates"], conv_out.float())
     i_pre = gates[..., :H].float()
-    logf = F.logsigmoid(gates[..., H:]).float()
+    logf = pointwise(F.logsigmoid, gates[..., H:]).float()
     (C, n, m), hcell = mlstm_recurrent_step(
         (state["C"], state["n"], state["m"]), q, k, v, i_pre, logf)
     hcell = hcell.reshape(B, cfg.d_inner).to(x_t.dtype)
@@ -331,7 +351,7 @@ def _slstm_cell_step(p, carry, x_pre):
     f_pre = x_pre["f"] + rec["f"]
     z = torch.tanh(x_pre["z"] + rec["z"])
     o = torch.sigmoid(x_pre["o"] + rec["o"])
-    logf = F.logsigmoid(f_pre)
+    logf = pointwise(F.logsigmoid, f_pre)
     m_new = torch.maximum(logf + m, i_pre)
     i_s = torch.exp(i_pre - m_new)
     f_s = torch.exp(logf + m - m_new)
@@ -359,25 +379,53 @@ def slstm_block_apply(p, x, cfg: XLSTMConfig):
     B, S, d = x.shape
     H = cfg.num_heads
     Dh = d // H
-    hin = rmsnorm_apply(p["norm"], x, eps=cfg.norm_eps)
+    hin = gather_rows(rmsnorm_apply(p["norm"], x, eps=cfg.norm_eps))
     pre = {g: constrain_dims(
-        dense_apply(p[f"w_{g}"], hin).float().reshape(B, S, H, Dh),
+        split_last(dense_apply(p[f"w_{g}"], hin).float(), H, Dh),
         cfg.mesh_axes, ("dp", None, None, "tp")) for g in GATES}
 
     if cfg.slstm_impl == "kernel":
         # the whole time loop in one launch, state on chip
         R = torch.stack([p[f"r_{g}"].float() for g in GATES])
-        hs = slstm_ops.slstm_scan(pre["i"], pre["f"], pre["z"], pre["o"], R)
+        pre_spec = r_spec = None
+        if cfg.mesh_axes:
+            # the kernel takes local tensors: the batch over dp, the heads
+            # over "model" where they divide, each head's units whole
+            dp, heads = dims_spec((B, H), cfg.mesh_axes, ("dp", "tp"))
+            pre_spec = (dp, None, heads, None)
+            r_spec = (None, heads, None, None)
+        hs = local_region(slstm_ops.slstm_scan, cfg.mesh_axes,
+                          [pre_spec] * 4 + [r_spec], pre_spec)(
+            pre["i"], pre["f"], pre["z"], pre["o"], R)
         return _slstm_out(p, x, hs.reshape(B, S, d), cfg)
 
-    rp = {f"r_{g}": p[f"r_{g}"].float() for g in GATES}
-    zero = torch.zeros((B, H, Dh), dtype=torch.float32, device=x.device)
+    rs = [p[f"r_{g}"].float() for g in GATES]
+    pre_spec = r_spec = None
+    if cfg.mesh_axes:
+        # as the kernel's: the recurrence mixes a head's units, so each
+        # head stays whole on a device; R's gradient sums over the batch
+        dp, heads = dims_spec((B, H), cfg.mesh_axes, ("dp", "tp"))
+        pre_spec, r_spec = (dp, None, heads, None), (heads, None, None)
+    hs = local_region(_slstm_loop, cfg.mesh_axes,
+                      [pre_spec] * 4 + [r_spec] * 4, pre_spec,
+                      partial_grads=(4, 5, 6, 7))(
+        *(pre[g] for g in GATES), *rs)
+    return _slstm_out(p, x, hs.reshape(B, S, d), cfg)
+
+
+def _slstm_loop(pre_i, pre_f, pre_z, pre_o, r_i, r_f, r_z, r_o):
+    """The cell step over the sequence from the initial state: h (B, S, H,
+    Dh) f32."""
+    B, S, H, Dh = pre_i.shape
+    rp = {"r_i": r_i, "r_f": r_f, "r_z": r_z, "r_o": r_o}
+    pre = dict(zip(GATES, (pre_i, pre_f, pre_z, pre_o)))
+    zero = torch.zeros((B, H, Dh), dtype=torch.float32, device=pre_i.device)
     carry = (zero, zero + 1e-6, zero - 1e30, zero)
     hs = []
     for t in range(S):
         carry = _slstm_cell_step(rp, carry, {g: pre[g][:, t] for g in GATES})
         hs.append(carry[3])
-    return _slstm_out(p, x, torch.stack(hs, dim=1).reshape(B, S, d), cfg)
+    return torch.stack(hs, dim=1)
 
 
 def slstm_block_step(p, x_t, state, cfg: XLSTMConfig):
@@ -386,7 +434,7 @@ def slstm_block_step(p, x_t, state, cfg: XLSTMConfig):
     H = cfg.num_heads
     Dh = d // H
     hin = rmsnorm_apply(p["norm"], x_t, eps=cfg.norm_eps)[:, 0]
-    pre = {g: dense_apply(p[f"w_{g}"], hin).float().reshape(B, H, Dh)
+    pre = {g: split_last(dense_apply(p[f"w_{g}"], hin).float(), H, Dh)
            for g in GATES}
     carry = (state["c"], state["n"], state["m"], state["h"])
     c, n, m, h = _slstm_cell_step(p, carry, pre)

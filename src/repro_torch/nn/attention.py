@@ -30,12 +30,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.dtensor import (apply_spec, dims_spec,
+                                          gather_rows, is_dtensor,
+                                          local_region, split_last)
 from repro_torch.nn.init import lecun_normal
 from repro_torch.nn.linear import dense_init, dense_apply
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
 from repro_torch.nn.rope import apply_mrope, apply_rope
 
 NEG_INF = -2.3819763e38  # large negative, bf16-safe masking
+# chunked scores (B, K, G, Sq, ck): batch over dp, Sq over "model"
+SCORE_ROLES = ("dp", None, None, "tp", None)
 IMPLS = ("xla", "kernel")
 
 
@@ -114,9 +119,10 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
     (B, S), or (3, B, S) with M-RoPE."""
     B, S, _ = x.shape
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense_apply(params["wq"], x).reshape(B, S, H, D)
-    k = dense_apply(params["wk"], x).reshape(B, S, K, D)
-    v = dense_apply(params["wv"], x).reshape(B, S, K, D)
+    x = gather_rows(x)              # once for the three projections
+    q = split_last(dense_apply(params["wq"], x), H, D)
+    k = split_last(dense_apply(params["wk"], x), K, D)
+    v = split_last(dense_apply(params["wv"], x), K, D)
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q)
         k = rmsnorm_apply(params["k_norm"], k)
@@ -131,8 +137,46 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
     return q, k, v
 
 
+def _constrain_scores(s, mesh_axes):
+    """Chunked scores (B, K, G, Sq, ck): batch over dp, Sq over "model"
+    (sequence-parallel attention) where divisible. The identity without
+    ``mesh_axes`` or on a plain tensor."""
+    if not mesh_axes:
+        return s
+    return apply_spec(s, mesh_axes, dims_spec(s.shape, mesh_axes,
+                                              SCORE_ROLES))
+
+
 def _xla_attention(q, k, v, scale, *, q_pos=None, kv_pos=None, causal=True,
-                   window=None, kv_valid=None, kv_chunk=4096):
+                   window=None, kv_valid=None, kv_chunk=4096,
+                   mesh_axes=None):
+    """The chunked online softmax below; under ``mesh_axes`` with DTensor
+    inputs it runs on each device's shards in the layout that
+    :func:`_constrain_scores` gives the scores: the batch over dp, the
+    queries' sequence over "model" where they divide, the keys and
+    values whole along the sequence. The chunk loop is then local work
+    (DTensor has no cheap rule for the scores' reshapes)."""
+    if not mesh_axes:
+        return _attention_chunks(q, k, v, scale, q_pos=q_pos, kv_pos=kv_pos,
+                                 causal=causal, window=window,
+                                 kv_valid=kv_valid, kv_chunk=kv_chunk)
+    dp, sq = dims_spec(q.shape[:2], mesh_axes, ("dp", "tp"))
+    q_spec, kv_spec = (dp, sq, None, None), (dp, None, None, None)
+    return local_region(
+        lambda q_, k_, v_, qp, kp, kvv: _attention_chunks(
+            q_, k_, v_, scale, q_pos=qp, kv_pos=kp, causal=causal,
+            window=window, kv_valid=kvv, kv_chunk=kv_chunk,
+            mesh_axes=mesh_axes),
+        mesh_axes, [q_spec, kv_spec, kv_spec, (dp, sq), (dp, None),
+                    (dp, None)], q_spec,
+        # each device's queries read every key: sum the keys' gradients
+        partial_grads=(1, 2) if sq else ())(q, k, v, q_pos, kv_pos,
+                                            kv_valid)
+
+
+def _attention_chunks(q, k, v, scale, *, q_pos=None, kv_pos=None,
+                      causal=True, window=None, kv_valid=None, kv_chunk=4096,
+                      mesh_axes=None):
     """Chunked online-softmax attention (never materializes Sq x Skv).
 
     q: (B, Sq, H, D); k/v: (B, Skv, K, D). The mask is composed per kv
@@ -152,8 +196,8 @@ def _xla_attention(q, k, v, scale, *, q_pos=None, kv_pos=None, causal=True,
     acc = torch.zeros((B, K, G, Sq, D), dtype=torch.float32, device=dev)
     for lo in range(0, Skv, ck):
         hi = min(lo + ck, Skv)
-        s = torch.einsum("bqkgd,bskd->bkgqs", q5,
-                         k[:, lo:hi].float()) * scale
+        s = _constrain_scores(torch.einsum(
+            "bqkgd,bskd->bkgqs", q5, k[:, lo:hi].float()) * scale, mesh_axes)
         mask = None
         if q_pos is not None and kv_pos is not None:
             delta = q_pos[:, :, None] - kv_pos[:, None, lo:hi]   # (B,Sq,ck)
@@ -179,6 +223,18 @@ def _xla_attention(q, k, v, scale, *, q_pos=None, kv_pos=None, causal=True,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+def _kernel_specs(cfg: AttnConfig, batch):
+    """(in specs, out spec) of the kernel path under ``mesh_axes``: the
+    batch over dp and the heads over "model" where both the q and kv
+    heads divide; the sequence whole (causal attention needs every key)."""
+    if not cfg.mesh_axes:
+        return [None] * 3, None
+    dp, hq, hk = dims_spec((batch, cfg.num_heads, cfg.num_kv_heads),
+                           cfg.mesh_axes, ("dp", "tp", "tp"))
+    spec = (dp, None, hq if hk else None, None)
+    return [spec] * 3, spec
+
+
 def attention_apply(params, x, cfg: AttnConfig, *, positions,
                     causal: bool = True, return_kv: bool = False,
                     kv_override=None):
@@ -191,30 +247,46 @@ def attention_apply(params, x, cfg: AttnConfig, *, positions,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if kv_override is not None:
         H, D = cfg.num_heads, cfg.head_dim
-        q = dense_apply(params["wq"], x).reshape(B, S, H, D)
+        q = split_last(dense_apply(params["wq"], x), H, D)
         if cfg.qk_norm:
             q = rmsnorm_apply(params["q_norm"], q)
         k, v, kv_mask = kv_override
         out = _xla_attention(q, k, v, scale, causal=False, kv_valid=kv_mask,
-                             kv_chunk=cfg.kv_chunk)
+                             kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
         return dense_apply(params["wo"], out.reshape(B, S, -1))
 
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cfg.impl == "kernel":
         from repro_torch.kernels.flash_attention import ops as flash_ops
-        out = flash_ops.flash_attention(q, k, v, causal=causal,
-                                        window=cfg.sliding_window)
+        out = local_region(
+            lambda q_, k_, v_: flash_ops.flash_attention(
+                q_, k_, v_, causal=causal, window=cfg.sliding_window),
+            cfg.mesh_axes, *_kernel_specs(cfg, B))(q, k, v)
     elif cfg.impl == "xla":
         pq = positions if positions.dim() == 2 else positions[0]
         out = _xla_attention(q, k, v, scale, q_pos=pq, kv_pos=pq,
-                             causal=causal,
-                             window=cfg.sliding_window, kv_chunk=cfg.kv_chunk)
+                             causal=causal, window=cfg.sliding_window,
+                             kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
     else:
         raise ValueError(f"attention impl {cfg.impl!r} is not one of {IMPLS}")
     out = dense_apply(params["wo"], out.reshape(B, S, -1))
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _write_slot(dst, rows, slot, val):
+    """``dst[rows, slot] = val`` in place (``rows`` is ``arange(B)``). A
+    DTensor cache is written through a slot mask (an elementwise select,
+    which every layout of the cache supports) and copied back into its
+    own placements; it needs no ``rows``."""
+    if not is_dtensor(dst):
+        dst[rows, slot] = val.to(dst.dtype)
+        return
+    hit = torch.arange(dst.shape[1], device=slot.device) == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (dst.dim() - 2))
+    new = torch.where(hit, val[:, None].to(dst.dtype), dst)
+    dst.copy_(new.redistribute(dst.device_mesh, dst.placements))
 
 
 def attention_decode(params, x, cfg: AttnConfig, *, cache, cur_pos):
@@ -235,18 +307,18 @@ def attention_decode(params, x, cfg: AttnConfig, *, cache, cur_pos):
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
 
     slot = torch.remainder(pos_arr[:, 0], num_slots).long()  # ring/identity
-    rows = torch.arange(B, device=dev)
+    rows = None if is_dtensor(cache["k"]) else torch.arange(B, device=dev)
     quantized = cache["k"].dtype == torch.int8
     if quantized:
         (k_store, k_sc), (v_store, v_sc) = (_quantize_kv(k_new),
                                             _quantize_kv(v_new))
-        cache["k_scale"][rows, slot] = k_sc[:, 0]
-        cache["v_scale"][rows, slot] = v_sc[:, 0]
+        _write_slot(cache["k_scale"], rows, slot, k_sc[:, 0])
+        _write_slot(cache["v_scale"], rows, slot, v_sc[:, 0])
     else:
         k_store, v_store = k_new, v_new
-    cache["k"][rows, slot] = k_store[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_store[:, 0].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = pos_arr[:, 0]
+    _write_slot(cache["k"], rows, slot, k_store[:, 0])
+    _write_slot(cache["v"], rows, slot, v_store[:, 0])
+    _write_slot(cache["pos"], rows, slot, pos_arr[:, 0])
     pos = cache["pos"]
 
     if quantized:
@@ -259,6 +331,6 @@ def attention_decode(params, x, cfg: AttnConfig, *, cache, cur_pos):
         valid = valid & (pos_arr - pos < cfg.sliding_window)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     out = _xla_attention(q, k, v, scale, kv_valid=valid,
-                         kv_chunk=cfg.kv_chunk)
+                         kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
     out = dense_apply(params["wo"], out.reshape(B, 1, -1))
     return out, cache

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.linear import dense_init, dense_apply
+from repro_torch.sharding.dtensor import gather_rows
 
 ACTS = {
     "silu": F.silu,
@@ -25,7 +26,9 @@ def mlp_init(gen, d_model, d_ff, *, gated=True, dtype=torch.float32):
 
 def mlp_apply(params, x, *, act="silu"):
     """SwiGLU (act=silu) / GeGLU (act=gelu) when ``wg`` is present, else
-    ``act(x @ wi) @ wo``."""
+    ``act(x @ wi) @ wo``. A sequence-parallel DTensor input is gathered
+    once for ``wi`` and ``wg``."""
+    x = gather_rows(x)
     h = dense_apply(params["wi"], x)
     if "wg" in params:
         h = ACTS[act](dense_apply(params["wg"], x)) * h

@@ -22,8 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor import (apply_spec, dp_spec, fsdp_gather,
+                                          local_region)
 from repro_torch.nn.init import lecun_normal, normal_init
 from repro_torch.nn.mlp import ACTS, mlp_apply, mlp_init
+from repro_torch.sharding.rules import MOE_EP_DATA
 
 
 def moe_init(gen, d_model, d_ff, num_experts, *, shared_expert=True,
@@ -46,6 +49,26 @@ def moe_init(gen, d_model, d_ff, num_experts, *, shared_expert=True,
     return p
 
 
+def _constrain(x, mesh_axes, spec_template):
+    """Best-effort sharding constraint: each template entry (None, an axis
+    name or a tuple of names) kept where its axes divide the dim. The
+    identity without ``mesh_axes`` or on a plain tensor."""
+    if not mesh_axes:
+        return x
+    sizes = dict(mesh_axes)
+    spec = []
+    for tok, dim in zip(spec_template, x.shape):
+        if tok is None:
+            spec.append(None)
+            continue
+        axes = tok if isinstance(tok, tuple) else (tok,)
+        prod = 1
+        for a in axes:
+            prod *= sizes.get(a, 1)
+        spec.append(tok if dim % prod == 0 and dim >= prod else None)
+    return apply_spec(x, mesh_axes, spec)
+
+
 def _rank_in_sorted_groups(sorted_eid):
     """sorted_eid: (G, T) ascending. The rank of each element within its
     run of equal ids."""
@@ -65,56 +88,49 @@ def capacity(tokens, num_experts, capacity_factor):
     return int(max(1, round(tokens / num_experts * capacity_factor)))
 
 
-def moe_apply(params, x, *, num_experts, capacity_factor=1.25, act="silu",
-              gate="sigmoid", dp_groups=1, mesh_axes=None):
-    """x: (B, S, d). Returns ``(y, aux)``: y (B, S, d) in x's dtype; aux
-    the router logits (T, E) f32, each token's expert id (T,) and the
-    fraction of tokens dropped past capacity."""
-    if mesh_axes:
-        raise NotImplementedError(
-            "mesh_axes: the sharded LM belongs to a later slice of the port")
-    B, S, d = x.shape
-    E = num_experts
-    T = B * S
-    G = dp_groups if T % dp_groups == 0 else 1
-    Tl = T // G
-    C = capacity(Tl, E, capacity_factor)
-
-    xt = x.reshape(G, Tl, d)
-    logits = torch.einsum("gtd,de->gte", xt.float(),
-                          params["router"]["w"].float())      # (G, Tl, E)
+def _router(xt, w, gate):
+    """The top-1 router in f32: (logits (G, Tl, E), expert id, gate)."""
+    logits = xt.float() @ w.float()                          # (G, Tl, E)
     expert_id = logits.argmax(dim=-1)                         # first max
     # amax: a tie shares the gradient as jnp.max's does
     if gate == "sigmoid":        # llama4: sigmoid of the chosen logit
         gate_val = torch.sigmoid(logits.amax(dim=-1))
     else:
         gate_val = torch.softmax(logits, dim=-1).amax(dim=-1)
+    return logits, expert_id, gate_val
 
+
+def _dispatch(xt, expert_id, E, C):
+    """Steps 1-3 on one device's groups: the stable sort by expert and
+    the gather-only dispatch into (G, E, C, d) slots. Returns (buf,
+    sort_idx, sorted_eid)."""
+    G, Tl, d = xt.shape
     # 1. local sort by expert
     sort_idx = torch.argsort(expert_id, dim=-1, stable=True)  # (G, Tl)
     sorted_eid = expert_id.gather(-1, sort_idx)
     x_sorted = torch.take_along_dim(xt, sort_idx[..., None], dim=1)
 
     # 2. per-expert counts -> offsets into the sorted order
-    counts = torch.zeros((G, E), dtype=torch.long, device=x.device)
+    counts = torch.zeros((G, E), dtype=torch.long, device=xt.device)
     counts.scatter_add_(1, expert_id, torch.ones_like(expert_id))
     offsets = torch.cumsum(counts, dim=-1) - counts           # exclusive
 
     # 3. gather-only dispatch into (G, E, C, d)
-    pos = torch.arange(C, device=x.device)
+    pos = torch.arange(C, device=xt.device)
     gather_idx = (offsets[..., None] + pos).clamp(0, Tl - 1)  # (G, E, C)
     valid = pos < torch.clamp_max(counts, C)[..., None]
     buf = torch.take_along_dim(
         x_sorted, gather_idx.reshape(G, E * C)[..., None], dim=1)
-    buf = buf.reshape(G, E, C, d) * valid[..., None].to(x.dtype)
+    buf = buf.reshape(G, E, C, d) * valid[..., None].to(xt.dtype)
+    return buf, sort_idx, sorted_eid
 
-    # 4. the experts' SwiGLU, batched over the expert axis
-    h = torch.einsum("gecd,edf->gecf", buf, params["wi"])
-    g = torch.einsum("gecd,edf->gecf", buf, params["wg"])
-    h = ACTS[act](g) * h
-    out = torch.einsum("gecf,efd->gecd", h, params["wo"])
 
-    # 5. combine: the token at sorted position t sits at (expert, rank)
+def _combine(out, gate_val, sort_idx, sorted_eid, C):
+    """Step 5 on one device's groups: the token at sorted position t sits
+    at (expert, rank); unsort and gate-scale. Returns (y (G, Tl, d), keep
+    (G, Tl))."""
+    G, E, _, d = out.shape
+    Tl = sort_idx.shape[-1]
     rank = _rank_in_sorted_groups(sorted_eid)                 # (G, Tl)
     keep = rank < C
     comb_idx = sorted_eid * C + torch.clamp_max(rank, C - 1)
@@ -122,9 +138,75 @@ def moe_apply(params, x, *, num_experts, capacity_factor=1.25, act="silu",
                                     comb_idx[..., None], dim=1)
     y_sorted = y_sorted * keep[..., None].to(out.dtype)
     inv = torch.empty_like(sort_idx).scatter_(
-        -1, sort_idx, torch.arange(Tl, device=x.device).expand(G, Tl))
+        -1, sort_idx, torch.arange(Tl, device=out.device).expand(G, Tl))
     y_routed = torch.take_along_dim(y_sorted, inv[..., None], dim=1)
-    y_routed = y_routed * gate_val[..., None].to(y_routed.dtype)
+    return y_routed * gate_val[..., None].to(y_routed.dtype), keep
+
+
+def _experts(buf, params, act, mesh_axes, dp_tok):
+    """Step 4, the experts' SwiGLU batched over the expert axis, with the
+    JAX package's expert-parallel layouts under ``mesh_axes``."""
+    wi, wg, wo = (fsdp_gather(params[k]) for k in ("wi", "wg", "wo"))
+    if MOE_EP_DATA and mesh_axes:
+        # all-to-all layout: (G, E, C, d) -> (E, G, C, d) with the expert
+        # dim on the data axis
+        buf_t = _constrain(buf.transpose(0, 1), mesh_axes,
+                           (dp_tok, None, None, None))
+        h = torch.einsum("egcd,edf->egcf", buf_t, wi)
+        g = torch.einsum("egcd,edf->egcf", buf_t, wg)
+        h = _constrain(ACTS[act](g) * h, mesh_axes,
+                       (dp_tok, None, None, "model"))
+        out_t = torch.einsum("egcf,efd->egcd", h, wo)
+        out_t = _constrain(out_t, mesh_axes, (dp_tok, None, None, None))
+        return _constrain(out_t.transpose(0, 1), mesh_axes,
+                          (dp_tok, "model", None, None))
+    h = torch.einsum("gecd,edf->gecf", buf, wi)
+    g = torch.einsum("gecd,edf->gecf", buf, wg)
+    h = ACTS[act](g) * h
+    out = torch.einsum("gecf,efd->gecd", h, wo)
+    # low-comm combine: the feature dim (not the expert dim) over "model",
+    # so the combine gathers stay shard-local
+    return _constrain(out, mesh_axes, (dp_tok, None, None, "model"))
+
+
+def moe_apply(params, x, *, num_experts, capacity_factor=1.25, act="silu",
+              gate="sigmoid", dp_groups=1, mesh_axes=None):
+    """x: (B, S, d). Returns ``(y, aux)``: y (B, S, d) in x's dtype; aux
+    the router logits (T, E) f32, each token's expert id (T,) and the
+    fraction of tokens dropped past capacity.
+
+    Under ``mesh_axes`` with DTensor inputs the groups lie over the dp
+    axes; the routing (steps 1-3) and the combine (step 5) run on each
+    device's own groups (``local_region``); the router and the experts'
+    products run on the DTensors, with the JAX package's constraints."""
+    B, S, d = x.shape
+    E = num_experts
+    T = B * S
+    G = dp_groups if T % dp_groups == 0 else 1
+    Tl = T // G
+    C = capacity(Tl, E, capacity_factor)
+
+    dp_tok = None
+    if mesh_axes:
+        dp_tok = tuple(a for a, _ in mesh_axes if a != "model") or None
+    gdp = dp_spec(mesh_axes, G) if mesh_axes else None
+
+    xt = _constrain(x.reshape(G, Tl, d), mesh_axes, (dp_tok, None, "model"))
+    logits, expert_id, gate_val = _router(xt, params["router"]["w"], gate)
+    buf, sort_idx, sorted_eid = local_region(
+        lambda xt_, eid: _dispatch(xt_, eid, E, C), mesh_axes,
+        [(gdp, None, None), (gdp, None)],
+        [(gdp, None, None, None), (gdp, None), (gdp, None)],
+    )(xt, expert_id)
+    buf = _constrain(buf, mesh_axes, (dp_tok, "model", None, None))
+
+    out = _experts(buf, params, act, mesh_axes, dp_tok)
+
+    y_routed, keep = local_region(
+        lambda o, g_, si, se: _combine(o, g_, si, se, C), mesh_axes,
+        [(gdp, None, None, None), (gdp, None), (gdp, None), (gdp, None)],
+        [(gdp, None, None), (gdp, None)],
+    )(out, gate_val, sort_idx, sorted_eid)
     y = y_routed.reshape(T, d)
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x.reshape(T, d), act=act)

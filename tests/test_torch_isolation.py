@@ -6,8 +6,10 @@ llama4-scout, llama4-maverick and qwen2-vl (vision embeddings included)
 through the kernel attention path, recurrentgemma-9b and whisper-large-v3
 (frame embeddings included) through the kernel attention path, a 3-token
 ``serve`` of each, a fault
-plan's draw, a train-state checkpoint round trip, ``retry_call``, ``multihost.host_value`` and one SFPL LM train
-step loads neither ``jax`` nor ``repro``; and the entry points run on CUDA
+plan's draw, a train-state checkpoint round trip, ``retry_call``, ``multihost.host_value``, one SFPL LM train
+step and a dry run on the 16x16 fake mesh (``launch/dryrun.py``, the
+sharding rules, the roofline's collectives) loads neither ``jax`` nor
+``repro``; and the entry points run on CUDA
 by default, raising when it is absent."""
 import os
 import subprocess
@@ -128,6 +130,13 @@ lm_params, _, _, loss = step(lm_params, opt.init(lm_params), 0,
                              {"tokens": toks, "labels": labels,
                               "perm": make_collector_perm(g, 2)})
 assert bool(torch.isfinite(loss))
+
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch.dryrun import lower_one, summarize
+smoke = dataclasses.asdict(spec.make_smoke_config())
+res = lower_one("qwen3-8b", InputShape("t", 16, 32, "train"),
+                cfg_overrides=smoke, device="cpu")
+assert res["cost"]["flops"] > 0 and "GiB/dev" in summarize(res)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("MODULES", len(names))

@@ -166,10 +166,17 @@ def test_router_load_balance_loss_matches_jax():
 
 
 def test_moe_mesh_axes_raise():
+    """``mesh_axes`` no longer raises (the sharded LM is ported): on plain
+    tensors its constraints are identities, so the call equals the one
+    without a mesh; a DTensor on another mesh than ``mesh_axes`` raises
+    (``tests/test_torch_sharding.py`` runs the sharded layer)."""
     params, x = _moe_inputs(1, 4, 4, True, "normal")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TMOE.moe_apply(from_jax_numpy(params), torch.from_numpy(x),
-                       num_experts=4, mesh_axes=(("data", 2),))
+    p, xt = from_jax_numpy(params), torch.from_numpy(x)
+    got, aux = TMOE.moe_apply(p, xt, num_experts=4,
+                              mesh_axes=(("data", 1), ("model", 1)))
+    want, aux0 = TMOE.moe_apply(p, xt, num_experts=4)
+    assert torch.equal(got, want)
+    assert torch.equal(aux["expert_id"], aux0["expert_id"])
 
 
 # --------------------------------------------------------------------------
