@@ -1,0 +1,10 @@
+"""The device's idle share in a cell that host dispatch paces: the part
+of the device pass's window (the CUDA activity alone, so the profiler
+slows the host little) that no device operation covers; the share
+``train.idle_pct`` takes, where it moves ``host_paced_samples_per_s``.
+
+Layer: the device (H100). Moves ``host_paced_samples_per_s``."""
+
+
+def read(trace):
+    return None if trace.busy is None else trace.busy.idle_pct()
