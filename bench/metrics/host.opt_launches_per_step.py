@@ -1,0 +1,14 @@
+"""The optimizer's launches a step in a cell that host dispatch paces: the
+kernels of the full pass whose launch call has one of the program's
+``optim.*`` spans on its stack (on any thread), over the pass's steps:
+the server's and the clients' updates together. Exact and the same from
+run to run. Left out where the program records no such span.
+
+Layer: the optimizer and host dispatch (``optim/sgd.py``: one
+elementwise chain for each parameter leaf). Moves
+``host_paced_samples_per_s``."""
+from bench import spans
+
+
+def read(trace):
+    return spans.launches_under(trace, ("optim.",))

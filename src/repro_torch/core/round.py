@@ -61,10 +61,12 @@ from repro_torch.core.collector_dist import (
     relayout_counts, submesh_axis_groups, submesh_slice_size,
     uniform_auto_slack)
 from repro_torch.device import resolve_device
+from repro_torch.trace import COUNTERS, span, spanned
 from repro_torch.tree import (grads, to_device, tree_leaves, tree_map,
                               tree_unflatten, with_grad)
 
 logger = logging.getLogger(__name__)
+_SFPL = COUNTERS["sfpl"]
 
 
 class PreparedPerm(NamedTuple):
@@ -264,12 +266,20 @@ class DenseTake:
     def prepare(self, perm, n):
         return PreparedPerm(perm, None)
 
+    @spanned("collector.permute")
     def permute(self, x, prep):
         perm = prep.perm if isinstance(prep, PreparedPerm) else prep
+        _count_permuted(x)
         if self.use_kernel and x.is_floating_point():
             return C.shuffle(x, perm, use_kernel=True)
         return x[perm]            # labels: a plain gather, never the kernel
 
+
+def _count_permuted(x):
+    """Add a float payload's bytes to ``COUNTERS["sfpl"]["permuted_bytes"]``
+    (labels are not counted)."""
+    if x.is_floating_point():
+        _SFPL["permuted_bytes"] += x.numel() * x.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,11 +355,13 @@ class MeshAllToAll:
         """Whether ``x``'s gathers run the kernels (auto: on CUDA)."""
         return self.use_kernel if self.use_kernel is not None else x.is_cuda
 
+    @spanned("collector.permute")
     def permute(self, x, prep):
         """This rank's ``(b, ...)`` slab of the permuted pool, from its own
         slab ``x``; differentiable in ``x``."""
         if not isinstance(prep, PreparedPerm):
             prep = self.prepare(prep, x.shape[0] * self.placement.world)
+        _count_permuted(x)
         return plan_shuffle(
             x, prep.plans, group=self.placement.group,
             rank=self.placement.rank, use_kernel=self._use_k(x),
@@ -545,9 +557,10 @@ class StreamingAllToAll(MeshAllToAll):
         place = self.placement
         plan = prep.plans[g][0]
         n = prep.perm.shape[0]
+        if plan.slice_size is not None and g != self._own(prep):
+            return None
+        _count_permuted(rows)
         if plan.slice_size is not None:
-            if g != self._own(prep):
-                return None
             group = place.slice_group(plan.slice_size)
         else:
             rows = self._relayout(rows, n, g)
@@ -579,6 +592,7 @@ class StreamingAllToAll(MeshAllToAll):
             return _combine_slices(parts, self._own(prep))
         return _concat_parts(parts)
 
+    @spanned("collector.permute")
     def permute(self, x, prep, skip=None):
         """Blocking shuffle of this rank's slab ``x`` under the per-group
         plans (the label pool, which never interleaves with client
@@ -748,6 +762,7 @@ def _participation(participation, num_clients, device):
 # --------------------------------------------------------------------------
 # SFPL round (Algorithm 1 + 2)
 
+@spanned("sfpl.round")
 def sfpl_round(gen, st, data, split, opt_c, opt_s, *, num_clients,
                batch_size, bn_mode="cmsd", collector, participation=None,
                device=None):
@@ -796,84 +811,102 @@ def sfpl_round(gen, st, data, split, opt_c, opt_s, *, num_clients,
     losses = []
 
     for idx in range(steps):
-        xb = data["x"][:, idx * batch_size:(idx + 1) * batch_size]
-        yb = data["y"][:, idx * batch_size:(idx + 1) * batch_size]
-        y_pool = yb.reshape(-1)
-        perm = collector.make_perm(gen, n_pool, dev)
-        prep = collector.prepare(perm, n_pool)
-        y_shuf = (collector.permute(y_pool, prep, skip=skip) if streamed
-                  else collector.permute(y_pool, prep))
-        mask_c = valid_shuf = None
-        kw = dict(srv_kw)
-        if part is not None:
-            mask_all = part[idx] if part.dim() == 2 else part
-            mask_c = place.local(mask_all)
-            # the pool's row mask through the same (replicated)
-            # permutation, cut to this rank's slab
-            kw["valid"] = place.local(
-                mask_all.repeat_interleave(batch_size)[perm])
+        with span("sfpl.step"):
+            with span("sfpl.perm"):
+                xb = data["x"][:, idx * batch_size:(idx + 1) * batch_size]
+                yb = data["y"][:, idx * batch_size:(idx + 1) * batch_size]
+                y_pool = yb.reshape(-1)
+                perm = collector.make_perm(gen, n_pool, dev)
+                prep = collector.prepare(perm, n_pool)
+                y_shuf = (collector.permute(y_pool, prep, skip=skip)
+                          if streamed else collector.permute(y_pool, prep))
+                mask_c = valid_shuf = None
+                kw = dict(srv_kw)
+                if part is not None:
+                    mask_all = part[idx] if part.dim() == 2 else part
+                    mask_c = place.local(mask_all)
+                    # the pool's row mask through the same (replicated)
+                    # permutation, cut to this rank's slab
+                    kw["valid"] = place.local(
+                        mask_all.repeat_interleave(batch_size)[perm])
 
-        sp_g = with_grad(st["sp"])
-        if streamed:
-            # 1.+2. pipelined: the pool is shuffled group by group outside
-            # the loss, so the de-shuffle is the explicit route_back under
-            # the backward plans, move for move autograd's on the sync path
-            with torch.no_grad():
-                A, ncbn, a_shuf = _streamed_forward(
-                    collector, prep, n_pool, split, st, xb, submesh, skip)
-            a_shuf.requires_grad_()
-            with torch.enable_grad():
-                loss, (nsbn, _) = split.server_loss(sp_g, st["sbn"], a_shuf,
-                                                    y_shuf, True, None, **kw)
-                g_all = grads(loss, {"sp": sp_g, "a": a_shuf})
-            g_pool = collector.route_back(g_all["a"], prep, n_pool,
-                                          skip=skip)
-        else:
-            # 1. client forward, all of this rank's clients at once
-            with torch.no_grad():
-                A, ncbn = split.client_fwd(st["cp"], st["cbn"], xb, True,
-                                           None)
+            sp_g = with_grad(st["sp"])
+            if streamed:
+                # 1.+2. pipelined: the pool is shuffled group by group
+                # outside the loss, so the de-shuffle is the explicit
+                # route_back under the backward plans, move for move
+                # autograd's on the sync path
+                with span("sfpl.client_fwd"), torch.no_grad():
+                    A, ncbn, a_shuf = _streamed_forward(
+                        collector, prep, n_pool, split, st, xb, submesh,
+                        skip)
+                a_shuf.requires_grad_()
+                with span("sfpl.server_fwd"), torch.enable_grad():
+                    loss, (nsbn, _) = split.server_loss(
+                        sp_g, st["sbn"], a_shuf, y_shuf, True, None, **kw)
+                with span("sfpl.server_bwd"):
+                    with torch.enable_grad():
+                        g_all = grads(loss, {"sp": sp_g, "a": a_shuf})
+                    g_pool = collector.route_back(g_all["a"], prep, n_pool,
+                                                  skip=skip)
+                    # each rank's loss holds its slab's share of the mean
+                    g_sp = place.sum_tree(g_all["sp"])
+            else:
+                # 1. client forward, all of this rank's clients at once
+                with span("sfpl.client_fwd"), torch.no_grad():
+                    A, ncbn = split.client_fwd(st["cp"], st["cbn"], xb, True,
+                                               None)
 
-            # 2.+3. pool client-major, shuffle, ONE server update. The
-            # loss is a function of the PRE-shuffle pool, so its gradient
-            # arrives already routed back to the source clients.
-            a_pool = A.reshape((-1,) + tuple(A.shape[2:])).requires_grad_()
-            with torch.enable_grad():
-                a_shuf = collector.permute(a_pool, prep)
-                loss, (nsbn, _) = split.server_loss(sp_g, st["sbn"], a_shuf,
-                                                    y_shuf, True, None, **kw)
-                g_all = grads(loss, {"sp": sp_g, "a": a_pool})
-            g_pool = g_all["a"]
-        # each rank's loss holds its slab's share of the global mean
-        g_sp = place.sum_tree(g_all["sp"])
-        sp_new, sopt_new = opt_s.update(g_sp, st["sopt"], st["sp"],
-                                        st["step"])
+                # 2.+3. pool client-major, shuffle, ONE server update. The
+                # loss is a function of the PRE-shuffle pool, so its
+                # gradient arrives already routed back to the source
+                # clients.
+                a_pool = A.reshape((-1,) + tuple(A.shape[2:])) \
+                    .requires_grad_()
+                with torch.enable_grad():
+                    a_shuf = collector.permute(a_pool, prep)
+                    with span("sfpl.server_fwd"):
+                        loss, (nsbn, _) = split.server_loss(
+                            sp_g, st["sbn"], a_shuf, y_shuf, True, None,
+                            **kw)
+                with span("sfpl.server_bwd"):
+                    with torch.enable_grad():
+                        g_all = grads(loss, {"sp": sp_g, "a": a_pool})
+                    g_pool = g_all["a"]
+                    # each rank's loss holds its slab's share of the mean
+                    g_sp = place.sum_tree(g_all["sp"])
+            _SFPL["steps"] += 1
+            sp_new, sopt_new = opt_s.update(g_sp, st["sopt"], st["sp"],
+                                            st["step"])
 
-        # 4. client backprop and local steps (dA is pooled like A)
-        dA = g_pool.reshape(A.shape)
-        cp_new, copt_new, ncbn2 = client_upd(st["cp"], ncbn, st["copt"], xb,
-                                             dA, st["step"])
-        if mask_c is not None:
-            # absent clients take no local step: weight decay, momentum
-            # and the BN running update are gated back to the old state
-            cp_new = _gate(mask_c, cp_new, st["cp"])
-            copt_new = _gate(mask_c, copt_new, st["copt"])
-            ncbn2 = _gate(mask_c, ncbn2, st["cbn"])
+            # 4. client backprop and local steps (dA is pooled like A)
+            with span("sfpl.client_upd"):
+                dA = g_pool.reshape(A.shape)
+                cp_new, copt_new, ncbn2 = client_upd(
+                    st["cp"], ncbn, st["copt"], xb, dA, st["step"])
+                if mask_c is not None:
+                    # absent clients take no local step: weight decay,
+                    # momentum and the BN running update are gated back
+                    # to the old state
+                    cp_new = _gate(mask_c, cp_new, st["cp"])
+                    copt_new = _gate(mask_c, copt_new, st["copt"])
+                    ncbn2 = _gate(mask_c, ncbn2, st["cbn"])
 
-        st = dict(st, cp=cp_new, cbn=ncbn2, sp=sp_new, sbn=nsbn,
-                  copt=copt_new, sopt=sopt_new, step=st["step"] + 1)
-        losses.append(place.all_sum(loss.detach()))
+            st = dict(st, cp=cp_new, cbn=ncbn2, sp=sp_new, sbn=nsbn,
+                      copt=copt_new, sopt=sopt_new, step=st["step"] + 1)
+            losses.append(place.all_sum(loss.detach()))
 
     # 5. ClientFedServer, over every client of every rank
-    exclude = bn_mode == "cmsd"
-    w = None
-    if part is not None:
-        w = place.local((part if part.dim() == 1
-                         else part.any(dim=0)).float())
-    st = dict(st, cp=fedavg(st["cp"], weights=w, exclude_bn=exclude,
-                            reduce=place.psum),
-              cbn=aggregate_bn_state(st["cbn"], aggregate=not exclude,
-                                     weights=w, reduce=place.psum))
+    with span("sfpl.fedavg"):
+        exclude = bn_mode == "cmsd"
+        w = None
+        if part is not None:
+            w = place.local((part if part.dim() == 1
+                             else part.any(dim=0)).float())
+        st = dict(st, cp=fedavg(st["cp"], weights=w, exclude_bn=exclude,
+                                reduce=place.psum),
+                  cbn=aggregate_bn_state(st["cbn"], aggregate=not exclude,
+                                         weights=w, reduce=place.psum))
     return st, torch.stack(losses)
 
 

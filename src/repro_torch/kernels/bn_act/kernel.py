@@ -11,7 +11,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/bn_act.cu"
@@ -27,6 +27,13 @@ def _fn():
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def bn_act_bytes(elems, elem_bytes, groups, channels):
+    """Bytes one launch moves: ``elems`` elements of ``x`` read and of
+    ``y`` written, and the f32 affine ``a``, ``b`` (``groups`` x
+    ``channels`` each) read."""
+    return 2 * elems * elem_bytes + 2 * groups * channels * 4
 
 
 def bn_act(x, a, b, *, relu=True):
@@ -52,5 +59,5 @@ def bn_act(x, a, b, *, relu=True):
                 rows * c, c, DTYPES[x.dtype], int(relu),
                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "bn_act")
-    LAUNCHES["bn_act"] += 1
+    count("bn_act", bn_act_bytes(x.numel(), x.element_size(), g, c))
     return y

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/collector_permute.cu"
@@ -39,6 +39,12 @@ def _plan_fn(name):
     return fn
 
 
+def gather_bytes(rows, row_bytes, index_bytes):
+    """Bytes one K1 launch moves: ``rows`` rows of ``row_bytes`` read and
+    written, and one index of ``index_bytes`` read for each."""
+    return rows * (2 * row_bytes + index_bytes)
+
+
 def collector_permute(x, perm):
     """x: (R, ...) contiguous float CUDA tensor; perm: (R,) int64 on the
     same device, a permutation of ``range(R)``. Returns ``x[perm]``."""
@@ -59,7 +65,8 @@ def collector_permute(x, perm):
     err = _fn()(x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows,
                 row_bytes, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "collector_permute")
-    LAUNCHES["collector_permute"] += 1
+    count("collector_permute", gather_bytes(rows, row_bytes,
+                                            perm.element_size()))
     return out
 
 

@@ -58,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/softmax_xent/kernel.py"
@@ -190,6 +190,18 @@ def _check(x, labels, *rows_f32):
             raise ValueError("lse and g must be contiguous float32 (R,)")
 
 
+def xent_fwd_bytes(r, v, elem_bytes):
+    """Bytes one K3f launch moves: the (R, V) logits and int64 labels
+    read, f32 ``nll`` and ``lse`` written."""
+    return r * v * elem_bytes + r * 8 + 2 * r * 4
+
+
+def xent_bwd_bytes(r, v, elem_bytes):
+    """Bytes one K3b launch moves: logits, int64 labels, f32 ``lse`` and
+    row scale read, the logits' gradient written."""
+    return 2 * r * v * elem_bytes + r * 8 + 2 * r * 4
+
+
 def xent_fwd(x, labels):
     """x: (R, V) logits on the card; labels: (R,) int64 valid class ids.
     Returns per-row ``(nll, lse)``, both (R,) float32."""
@@ -206,7 +218,7 @@ def xent_fwd(x, labels):
         fwd[(geo.programs(r),)](x, labels, nll, lse, r, v, x.stride(0),
                                 BLOCK_R=geo.rows, BLOCK_V=geo.block_v,
                                 num_warps=geo.warps)
-    LAUNCHES["xent_fwd"] += 1
+    count("xent_fwd", xent_fwd_bytes(r, v, x.element_size()))
     return nll, lse
 
 
@@ -221,5 +233,5 @@ def xent_bwd(x, labels, lse, g):
     bwd[(geo.programs(r), geo.col_blocks)](
         x, labels, lse, g, dx, r, v, x.stride(0), dx.stride(0),
         BLOCK_R=geo.rows, BLOCK_V=geo.block_v, num_warps=geo.warps)
-    LAUNCHES["xent_bwd"] += 1
+    count("xent_bwd", xent_bwd_bytes(r, v, x.element_size()))
     return dx

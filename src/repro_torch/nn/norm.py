@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
 from repro_torch.nn.init import ones, zeros
+from repro_torch.trace import span
 
 
 def _batch_moments(x, axes, valid, reduce=None):
@@ -72,19 +73,19 @@ def _stats(state, x, *, training, momentum, use_running_stats, valid,
     autograd graph, the new running state does not."""
     stacked = state["mean"].dim() == 2
     axes = tuple(range(1 if stacked else 0, x.dim() - 1))
-    if training:
+    rmsd = True if use_running_stats is None else use_running_stats
+    if not training and rmsd:
+        return state["mean"], state["var"], state
+    with span("bn.stats"):
         mean, var = _batch_moments(x, axes, valid, reduce)
+        if not training:                # CMSD: the batch's own moments
+            return mean, var, state
         new_state = {
             "mean": momentum * state["mean"] + (1 - momentum) * mean.detach(),
             "var": momentum * state["var"] + (1 - momentum) * var.detach(),
             "count": state["count"] + 1.0,
         }
-        return mean, var, new_state
-    rmsd = True if use_running_stats is None else use_running_stats
-    if rmsd:
-        return state["mean"], state["var"], state
-    mean, var = _batch_moments(x, axes, valid, reduce)   # CMSD: the batch's
-    return mean, var, state
+    return mean, var, new_state
 
 
 def _per_channel(t, x):
@@ -106,12 +107,13 @@ def batchnorm_apply(params, state, x, *, training, momentum=0.9, eps=1e-5,
                                   momentum=momentum,
                                   use_running_stats=use_running_stats,
                                   valid=valid, reduce=reduce)
-    x32 = x.float()
-    y = (x32 - _per_channel(mean, x)) * _per_channel(
-        1.0 / torch.sqrt(var + eps), x)
-    y = y * _per_channel(params["scale"].float(), x) \
-        + _per_channel(params["bias"].float(), x)
-    return y.to(x.dtype), new_state
+    with span("bn.act"):
+        x32 = x.float()
+        y = (x32 - _per_channel(mean, x)) * _per_channel(
+            1.0 / torch.sqrt(var + eps), x)
+        y = y * _per_channel(params["scale"].float(), x) \
+            + _per_channel(params["bias"].float(), x)
+        return y.to(x.dtype), new_state
 
 
 def batchnorm_act_apply(params, state, x, *, training, relu=True,
@@ -131,15 +133,16 @@ def batchnorm_act_apply(params, state, x, *, training, relu=True,
                                   momentum=momentum,
                                   use_running_stats=use_running_stats,
                                   valid=valid, reduce=reduce)
-    a = params["scale"].float() / torch.sqrt(var + eps)
-    b = params["bias"].float() - mean * a
-    if use_kernel:
-        from repro_torch.kernels.bn_act import ops
-        return ops.bn_act(x, a, b, relu=relu), new_state
-    y32 = x.float() * _per_channel(a, x) + _per_channel(b, x)
-    if relu:
-        y32 = torch.clamp_min(y32, 0.0)
-    return y32.to(x.dtype), new_state
+    with span("bn.act"):
+        a = params["scale"].float() / torch.sqrt(var + eps)
+        b = params["bias"].float() - mean * a
+        if use_kernel:
+            from repro_torch.kernels.bn_act import ops
+            return ops.bn_act(x, a, b, relu=relu), new_state
+        y32 = x.float() * _per_channel(a, x) + _per_channel(b, x)
+        if relu:
+            y32 = torch.clamp_min(y32, 0.0)
+        return y32.to(x.dtype), new_state
 
 
 # --------------------------------------------------------------------------

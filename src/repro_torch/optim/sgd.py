@@ -12,6 +12,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.trace import spanned
 from repro_torch.tree import tree_map
 
 
@@ -31,6 +32,7 @@ def sgd_momentum(lr, *, momentum=0.9, weight_decay=0.0, nesterov=False,
         return {"mu": tree_map(lambda p: torch.zeros_like(
             p, dtype=state_dtype or p.dtype), params)}
 
+    @spanned("optim.sgd")
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
 
@@ -62,6 +64,7 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
         z = lambda p: torch.zeros_like(p, dtype=state_dtype or torch.float32)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
+    @spanned("optim.adamw")
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
         t = torch.as_tensor(step, dtype=torch.float32) + 1.0

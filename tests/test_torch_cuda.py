@@ -35,7 +35,9 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.bn_act import kernel as bn_k
 from repro_torch.kernels.bn_act import ops as bn_ops, ref as bn_ref
+from repro_torch.kernels.collector_permute import kernel as perm_k
 from repro_torch.kernels.collector_permute import ops as perm_ops
 from repro_torch.kernels.collector_permute import ref as perm_ref
 from repro_torch.kernels.flash_attention import kernel as flash_k
@@ -84,9 +86,13 @@ def test_collector_permute_kernel(dev, rows, feat, dtype):
     x = torch.randn((rows,) + feat, device=dev).to(dtype).requires_grad_()
     perm = torch.randperm(rows, device=dev)
     before = K.LAUNCHES["collector_permute"]
+    nbytes = K.BYTES["collector_permute"]
     out = perm_ops.collector_permute(x, perm)
     (g,) = torch.autograd.grad(out, x, torch.ones_like(out) * 2)
     assert K.LAUNCHES["collector_permute"] == before + 2   # fwd + bwd
+    row = x[0].numel() * x.element_size()
+    assert K.BYTES["collector_permute"] == nbytes + 2 * perm_k.gather_bytes(
+        rows, row, 8)
     assert torch.equal(out, x.detach()[perm])
     assert torch.equal(g, torch.full_like(g, 2))
 
@@ -100,8 +106,11 @@ def test_bn_act_kernel(dev, g, rows, c, relu, dtype):
     a = torch.rand(g, c, device=dev) + 0.5
     b = torch.randn(g, c, device=dev)
     before = K.LAUNCHES["bn_act"]
+    nbytes = K.BYTES["bn_act"]
     y = bn_ops.bn_act(x, a, b, relu=relu)
     assert K.LAUNCHES["bn_act"] == before + 1
+    assert K.BYTES["bn_act"] == nbytes + bn_k.bn_act_bytes(
+        x.numel(), x.element_size(), g, c)
     assert _within(y, bn_ref.bn_act(x, a, b, relu=relu),
                    torch.finfo(dtype).eps)
 
@@ -118,10 +127,17 @@ def test_softmax_xent_kernels(dev, rows, v, dtype):
     lab = torch.randint(0, v, (rows,), device=dev)
     lab[::5] = -100
     before = (K.LAUNCHES["xent_fwd"], K.LAUNCHES["xent_bwd"])
+    nbytes = (K.BYTES["xent_fwd"], K.BYTES["xent_bwd"])
     loss = xent_ops.softmax_xent(x, lab)
     (g,) = torch.autograd.grad(loss, x)
     assert (K.LAUNCHES["xent_fwd"], K.LAUNCHES["xent_bwd"]) == (
         before[0] + 1, before[1] + 1)
+    # K3f reads the logits and int64 labels, writes f32 nll and lse; K3b
+    # reads both and f32 lse and row scale, writes the logits' gradient
+    logits = x.numel() * x.element_size()
+    per_row = rows * (8 + 2 * 4)
+    assert (K.BYTES["xent_fwd"], K.BYTES["xent_bwd"]) == (
+        nbytes[0] + logits + per_row, nbytes[1] + 2 * logits + per_row)
     x_cpu = x.detach().cpu()
     want = xent_ops.softmax_xent(x_cpu.requires_grad_(), lab.cpu())
     (g_cpu,) = torch.autograd.grad(want, x_cpu)
