@@ -129,6 +129,9 @@ ROTATE = 4
 REPLACES = {
     "collector_permute": "src/repro/kernels/collector_permute/kernel.py:33",
     "bn_act": "src/repro/kernels/bn_act/kernel.py:30",
+    "bn_moments": "none (plain PyTorch: x.float(), var_mean, the fold and "
+                  "running update)",
+    "bn_grad": "none (plain PyTorch: the autograd chain of the BatchNorm)",
     "xent_fwd": "src/repro/kernels/softmax_xent/kernel.py:50",
     "xent_bwd": "src/repro/kernels/softmax_xent/kernel.py:79",
     "bucket_permute": "src/repro/kernels/collector_permute/kernel.py:57",
@@ -151,6 +154,8 @@ for _row in K7_ROWS:
     REPLACES[_row] = REPLACES["flash_attention"]
 ROUTE = {"collector_permute": ("cuda", perm_k.SOURCE),
          "bn_act": ("cuda", bn_k.SOURCE),
+         "bn_moments": ("cuda", bn_k.SOURCE),
+         "bn_grad": ("cuda", bn_k.SOURCE),
          "xent_fwd": ("triton", xent_k.SOURCE),
          "xent_bwd": ("triton", xent_k.SOURCE),
          "bucket_permute": ("cuda", perm_k.SOURCE),
@@ -164,9 +169,11 @@ for _row in K7_ROWS:
     ROUTE[_row] = ROUTE["flash_attention"]
 # the kernels of the single-device path (phases 3-5); the sharded path
 # (phase 6) adds the other four
-SINGLE_DEVICE = ("collector_permute", "bn_act", "xent_fwd", "xent_bwd")
+SINGLE_DEVICE = ("collector_permute", "bn_act", "bn_moments", "bn_grad",
+                 "xent_fwd", "xent_bwd")
 # kernel symbols in a profile, per launch counter
 SYMBOL = {"collector_permute": "permute_rows", "bn_act": "bn_act_kernel",
+          "bn_moments": "bn_moments_kernel", "bn_grad": "bn_grad_",
           "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
           "bucket_permute": "bucket_gather_rows",
           "unbucket_permute": "recv_gather_rows",
@@ -447,6 +454,150 @@ def check_bn_act(groups, rows, c, dtype, relu=True):
     record("bn_act", x.shape, dtype, err, ok, tol,
            lambda: bn_k.bn_act(x, a, b, relu=relu),
            lambda: bn_ref.bn_act(x, a, b, relu=relu), nbytes, 3 * x.numel())
+
+
+def bn_train_inputs(groups, rows, c, dtype):
+    x = (torch.randn(groups, rows, c, device=DEV) * 2 + 0.5).to(dtype)
+    vec = [torch.rand(groups, c, device=DEV) + 0.5 for _ in range(4)]
+    return x, vec, torch.full((groups,), 3.0, device=DEV)
+
+
+def bn_moments_library(x, scale, bias, mean, var, count, eps=1e-5):
+    """PyTorch's own batch moments (``torch.batch_norm_stats``: f32 Welford
+    from x's dtype, its channels-last kernel on a (rows, C) input) with the
+    fold and the running update as eager ops: the library's version of
+    one ``bn_moments`` launch at G = 1."""
+    mu, invstd = torch.batch_norm_stats(x, eps)
+    a = scale * invstd
+    return (a, bias - mu * a, torch.lerp(mean, mu, 0.1),
+            torch.lerp(var, invstd.pow(-2) - eps, 0.1), count + 1.0)
+
+
+def bn_grad_library(gy, x, y, mu, invstd, scale, n, relu):
+    """PyTorch's own two-pass BatchNorm backward
+    (``torch.batch_norm_backward_reduce``, ``batch_norm_backward_elemt``)
+    after a ReLU mask pass from the kept ``y``: the library's version of
+    one ``bn_grad`` launch at G = 1. Returns dx, dscale, dbias."""
+    gm = torch.ops.aten.threshold_backward(gy, y, 0) if relu else gy
+    sdy, sdyx, dscale, dbias = torch.batch_norm_backward_reduce(
+        gm, x, mu, invstd, scale, True, True, True)
+    return (torch.batch_norm_backward_elemt(gm, x, mu, invstd, scale, sdy,
+                                            sdyx, n), dscale, dbias)
+
+
+def library_or_none(name, fn):
+    """``fn`` when one call of it runs here, else None (and why)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, TypeError) as exc:
+        print(f"{name}: no library version ({exc})", flush=True)
+        return None
+
+
+def check_bn_moments(groups, rows, c, dtype):
+    """The moments kernel (training: with the fold and running update)
+    against float64 moments of its input; the fold, rstd and the running
+    mean, var and count bitwise the plain expressions of its own moments.
+    At G = 1, PyTorch's ``batch_norm_stats`` with an eager fold and update
+    is timed as the library version."""
+    x, (scale, bias, mean, var), count = bn_train_inputs(groups, rows, c,
+                                                         dtype)
+    kw = dict(momentum=0.9, eps=1e-5, training=True)
+    stats, new = bn_k.bn_moments(x, scale, bias, mean, var, count, **kw)
+    v64, m64 = torch.var_mean(x.double(), dim=1, correction=0)
+    torch.cuda.synchronize()
+    err = max(float(((stats[0].double() - m64).abs() / v64.sqrt()).max()),
+              float(((stats[1].double() - v64).abs() / v64).max()))
+    sd = torch.sqrt(stats[1] + 1e-5)
+    plain = ((stats[2], scale / sd), (stats[3], bias - stats[0] * stats[2]),
+             (stats[4], 1.0 / sd),
+             (new[0], 0.9 * mean + (1 - 0.9) * stats[0]),
+             (new[1], 0.9 * var + (1 - 0.9) * stats[1]),
+             (new[2], count + 1.0))
+    ok = err < 1e-5 and all(torch.equal(got, want) for got, want in plain)
+    del v64, m64
+    library = None if groups > 1 else library_or_none(
+        "bn_moments", lambda: bn_moments_library(
+            x[0], scale[0], bias[0], mean[0], var[0], count[0]))
+    parts = bn_k.stat_geometry(groups, rows, c, x.element_size(), True,
+                               bn_k._sms(0))[2]
+    nbytes = bn_k.bn_moments_bytes(x.numel(), x.element_size(), groups, c,
+                                   parts, True)
+    record("bn_moments", x.shape, dtype, err, ok,
+           "1e-5 of float64 (relative); fold, rstd, running state bitwise",
+           lambda: bn_k.bn_moments(x, scale, bias, mean, var, count, **kw),
+           lambda: bn_ref.bn_moments(x, scale, bias, mean, var, count, **kw),
+           nbytes, 5 * x.numel(), library=library,
+           heavy=x.numel() > 2 ** 25)
+
+
+def check_bn_grad(groups, rows, c, dtype, relu=True):
+    """The backward's two kernels against their plain version on the same
+    moments: dx within one rounding of ``dtype``; dscale and dbias within
+    1e-5 of the sum of their terms' magnitudes. At G = 1, PyTorch's own
+    two-pass backward after a mask pass is timed as the library version."""
+    x, (scale, bias, mean, var), count = bn_train_inputs(groups, rows, c,
+                                                         dtype)
+    stats, _ = bn_k.bn_moments(x, scale, bias, mean, var, count,
+                               momentum=0.9, eps=1e-5, training=False)
+    gy = torch.randn(x.shape, device=DEV).to(dtype)
+    dx, dscale, dbias = bn_k.bn_grad(gy, x, stats, relu=relu)
+    want, want_dscale, want_dbias = bn_ref.bn_grad(gy, x, stats, relu=relu)
+    torch.cuda.synchronize()
+    d = (dx.double() - want.double()).abs()
+    lim = ulp(dtype) * want.double().abs() + 1e-5 * float(
+        want.double().abs().max())
+    err, ok = float(d.max()), bool((d <= lim).all())
+    del d, lim, want, dx
+    y = bn_k.bn_act(x, stats[2], stats[3], relu=relu)
+    gm = torch.where(y > 0, gy, 0) if relu else gy
+    for got, want, terms in (
+            (dbias, want_dbias, lambda: gm.float().abs().sum(dim=1)),
+            (dscale, want_dscale, lambda: (stats[4][:, None] * gm.float() * (
+                x.float() - stats[0][:, None])).abs().sum(dim=1))):
+        gap = (got.double() - want.double()).abs()
+        err = max(err, float(gap.max()))
+        ok = ok and bool((gap <= 1e-5 * terms().double() + 1e-30).all())
+    del gm
+    library = None
+    if groups == 1:
+        n = torch.tensor([rows], dtype=torch.int32, device=DEV)
+        library = library_or_none("bn_grad", lambda: bn_grad_library(
+            gy[0], x[0], y[0], stats[0, 0], stats[4, 0], scale[0], n, relu))
+    parts = bn_k.stat_geometry(groups, rows, c, x.element_size(), True,
+                               bn_k._sms(0))[2]
+    nbytes = bn_k.bn_grad_bytes(x.numel(), x.element_size(), groups, c,
+                                parts)
+    record("bn_grad", x.shape, dtype, err, ok,
+           f"dx 1 ulp of {dtype} + 1e-5 of max |dx|; dscale, dbias 1e-5 "
+           f"of the sum of |terms|",
+           lambda: bn_k.bn_grad(gy, x, stats, relu=relu),
+           lambda: bn_ref.bn_grad(gy, x, stats, relu=relu), nbytes,
+           12 * x.numel(), library=library, heavy=x.numel() > 2 ** 25)
+
+
+def kernels_bn():
+    """The BatchNorm training op's kernels at the cells' shapes: ResNet-56's
+    pool of 12,800 rows (the server's three stages, G = 1) and its 100
+    clients' stem (G = 100), ResNet-32's pool of 1,280 and 10 clients, a
+    ragged shape; bf16 (the cells') and f32. Returns the main path's rows
+    (ResNet-56 stage 1, bf16)."""
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for pool, clients in ((12800, 100), (1280, 10)):
+            for s, c in enumerate((WIDTH, 2 * WIDTH, 4 * WIDTH)):
+                rows = pool * (HW >> s) ** 2
+                check_bn_moments(1, rows, c, dtype)
+                check_bn_grad(1, rows, c, dtype)
+                if (dtype, pool, s) == (torch.bfloat16, 12800, 0):
+                    main["bn_moments"], main["bn_grad"] = RESULTS[-2:]
+            check_bn_moments(clients, 128 * HW * HW, WIDTH, dtype)
+            check_bn_grad(clients, 128 * HW * HW, WIDTH, dtype)
+        check_bn_moments(3, 1001, 5, dtype)
+        check_bn_grad(3, 1001, 5, dtype, relu=False)
+    return main
 
 
 def check_xent(rows, v, dtype):
@@ -966,6 +1117,9 @@ def kernels_vs_plain():
                 main["bn_act"] = RESULTS[-1]
         check_bn_act(CLIENTS, BATCH * HW * HW, WIDTH, dtype)
         check_bn_act(3, 1001, 5, dtype, relu=False)
+        # K2 at ResNet-56's pool of the benchmark (12,800 rows), stage 1
+        if dtype == torch.bfloat16:
+            check_bn_act(1, 12800 * HW * HW, WIDTH, dtype)
         check_xent(POOL, CLASSES, dtype)
         if dtype == torch.bfloat16:
             main["xent_fwd"], main["xent_bwd"] = RESULTS[-2], RESULTS[-1]
@@ -995,6 +1149,7 @@ def kernels_vs_plain():
     # a program looping over its column blocks), in turns on the same inputs
     for row in xent_probe.compare():
         print("K3b designs " + json.dumps(row), flush=True)
+    main.update(kernels_bn())
     main.update(kernels_lm())
     main.update(kernels_xlstm())
     return main

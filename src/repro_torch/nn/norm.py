@@ -88,6 +88,17 @@ def _stats(state, x, *, training, momentum, use_running_stats, valid,
     return mean, var, new_state
 
 
+def _takes_train_op(x, *, training, use_kernel, use_running_stats, valid,
+                    reduce):
+    """Whether a ``batchnorm_act_apply`` call runs the BatchNorm training
+    op: a CUDA input with ``use_kernel``, the batch's own moments
+    (training, or CMSD inference), and no ``valid`` row mask or ``reduce``
+    over ranks, which keep the plain code."""
+    rmsd = True if use_running_stats is None else use_running_stats
+    return bool(use_kernel and x.is_cuda and (training or not rmsd)
+                and valid is None and reduce is None)
+
+
 def _per_channel(t, x):
     """Broadcast a (C,) or client-stacked (N, C) vector against x."""
     if t.dim() == 1:
@@ -128,7 +139,26 @@ def batchnorm_act_apply(params, state, x, *, training, relu=True,
     ``use_kernel`` (its wrapper runs the plain version for a CPU tensor),
     else plain PyTorch. The fold rounds differently from the unfused form,
     so the f32 parity path (``policy=None``) keeps :func:`batchnorm_apply`.
+
+    A CUDA call with ``use_kernel`` that normalises by the batch's own
+    moments (training, or CMSD) over the whole local batch (no ``valid``,
+    no ``reduce``) is the hand-written training op
+    (``kernels.bn_act.ops.bn_train``): f32 moments read from ``x`` itself,
+    the fold and running update in the same launch, K2, and a two-kernel
+    backward through all of them, with nothing f32 of x's size kept.
     """
+    if _takes_train_op(x, training=training, use_kernel=use_kernel,
+                       use_running_stats=use_running_stats, valid=valid,
+                       reduce=reduce):
+        from repro_torch.kernels.bn_act import ops
+        with span("bn.act"):
+            y, new = ops.bn_train(
+                x, params["scale"].float(), params["bias"].float(),
+                state["mean"], state["var"], state["count"],
+                training=training, relu=relu, momentum=momentum, eps=eps)
+        if new is None:
+            return y, state
+        return y, dict(zip(("mean", "var", "count"), new))
     mean, var, new_state = _stats(state, x, training=training,
                                   momentum=momentum,
                                   use_running_stats=use_running_stats,

@@ -28,8 +28,10 @@ The spans of the single-device SFPL step (``core/round.py``,
 * ``optim.sgd`` / ``optim.adamw``: one optimizer update;
 * ``sfpl.fedavg``: FedAvg and the BN-state aggregation of the epoch;
 * ``bn.stats``: a BatchNorm's batch moments (training, or CMSD
-  inference) and its running update;
-* ``bn.act``: a BatchNorm's normalise, affine and ReLU (K2 or plain).
+  inference) and its running update (inside ``bn.act`` where the
+  training op runs them);
+* ``bn.act``: a BatchNorm's normalise, affine and ReLU (K2 or plain),
+  and with the training op, the op itself, whose backward it is charged.
 
 ``COUNTERS`` is the one registry of counters, groups of named integers
 that only grow until ``reset()``:
@@ -38,7 +40,8 @@ that only grow until ``reset()``:
   ``repro_torch.kernels``, whose ``LAUNCHES`` is the same dict;
 * ``COUNTERS["bytes"]``: bytes (every operand byte read once, every
   output byte written once) of the SFPL step's kernels K1, K2, K3f and
-  K3b, counted beside their launches (``kernels.BYTES``);
+  K3b and the BatchNorm training op's ``bn_moments`` and ``bn_grad``,
+  counted beside their launches (``kernels.BYTES``);
 * ``COUNTERS["sfpl"]``: ``steps`` of ``sfpl_round``, and
   ``permuted_bytes``, the float payload bytes the collector gathered
   forward (the backward de-shuffle moves as many again).

@@ -7,8 +7,13 @@ one (and no JAX, which tests/conftest.py imports):
 
 Tolerances: permute and the bucket gathers (K4a/K4b) bitwise; the
 quantize/dequantize gathers (K5a/K5b) bitwise in bytes, scales and
-values; bn_act 1 ulp of the working type; xent 1e-5 relative (f32 math)
-forward, 1e-5 relative or 1 ulp of bf16 / f16 backward, also at the
+values; bn_act 1 ulp of the working type; the BatchNorm training op's
+moments within 1e-5 of float64 moments, its fold and running update
+bitwise the plain expressions, its dx within one rounding of the stored
+dtype of the plain version, dscale and dbias within 1e-5 of float64 sums
+of their terms' magnitudes, and the op against the autograd chain it
+replaces at the cells' shapes, with less device memory held; xent 1e-5
+relative (f32 math) forward, 1e-5 relative or 1 ulp of bf16 / f16 backward, also at the
 shared geometry's edges (V 127-129, 16,385), above the one-block width
 (V 50,257), on the rows that straddle element 2**31 of a 131,073 x 16,384
 bf16 logits tensor, and under CUDA-graph replay of the backward. The
@@ -113,6 +118,168 @@ def test_bn_act_kernel(dev, g, rows, c, relu, dtype):
         x.numel(), x.element_size(), g, c)
     assert _within(y, bn_ref.bn_act(x, a, b, relu=relu),
                    torch.finfo(dtype).eps)
+
+
+# the cells' BatchNorm shapes (ResNet-56, pool 12,800: the server's three
+# stages and the 100 clients' stem) and ragged ones
+BN_SHAPES = [(1, 12800 * 1024, 16), (1, 12800 * 256, 32), (1, 12800 * 64, 64),
+             (100, 128 * 1024, 16), (3, 1001, 5), (2, 37, 24)]
+
+
+def _bn_world(dev, g, rows, c, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(g, rows, c, device=dev, generator=gen) * 2
+         + 0.5).to(dtype)
+    vec = [torch.rand(g, c, device=dev, generator=gen) + 0.5
+           for _ in range(4)]                       # scale bias mean var
+    return x, vec, torch.full((g,), 3.0, device=dev)
+
+
+@pytest.mark.parametrize("g,rows,c", BN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bn_moments_kernel(dev, g, rows, c, dtype):
+    """The moments against float64 moments of the same input; the fold and
+    the running update bitwise the plain expressions of the kernel's own
+    moments (IEEE division and square root on both sides); one launch of
+    ``bn_moments`` counted with its byte function, none of ``bn_act``."""
+    x, (scale, bias, mean, var), count = _bn_world(dev, g, rows, c, dtype)
+    launches, nbytes = dict(K.LAUNCHES), dict(K.BYTES)
+    stats, new = bn_k.bn_moments(x, scale, bias, mean, var, count,
+                                 momentum=0.9, eps=1e-5, training=True)
+    parts = bn_k.stat_geometry(g, rows, c, x.element_size(), True,
+                               bn_k._sms(dev.index or 0))[2]
+    assert K.LAUNCHES["bn_moments"] == launches["bn_moments"] + 1
+    assert K.BYTES["bn_moments"] == nbytes["bn_moments"] + \
+        bn_k.bn_moments_bytes(x.numel(), x.element_size(), g, c, parts, True)
+    assert K.LAUNCHES["bn_act"] == launches["bn_act"]
+    assert K.BYTES["bn_act"] == nbytes["bn_act"]
+    v64, m64 = torch.var_mean(x.double(), dim=1, correction=0)
+    mu, v, a, b, rstd = stats
+    assert float(((mu.double() - m64).abs() / v64.sqrt()).max()) < 1e-5
+    assert float(((v.double() - v64).abs() / v64).max()) < 1e-5
+    sd = torch.sqrt(v + 1e-5)
+    assert torch.equal(a, scale / sd)
+    assert torch.equal(b, bias - mu * a)
+    assert torch.equal(rstd, 1.0 / sd)
+    assert torch.equal(new[0], 0.9 * mean + (1 - 0.9) * mu)
+    assert torch.equal(new[1], 0.9 * var + (1 - 0.9) * v)
+    assert torch.equal(new[2], count + 1.0)
+    stats2, none = bn_k.bn_moments(x, scale, bias, mean, var, count,
+                                   momentum=0.9, eps=1e-5, training=False)
+    assert none is None and torch.equal(stats2, stats)    # shape alone
+    assert K.BYTES["bn_moments"] == nbytes["bn_moments"] + sum(
+        bn_k.bn_moments_bytes(x.numel(), x.element_size(), g, c, parts, t)
+        for t in (True, False))
+
+
+@pytest.mark.parametrize("g,rows,c", BN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_bn_grad_kernel(dev, g, rows, c, dtype, relu):
+    """``dx`` against the plain version on the same moments, within one
+    rounding of the stored dtype (the two take their sums in other
+    orders); ``dscale`` and ``dbias`` against float64 sums; the ReLU mask
+    is K2's y > 0; one launch of ``bn_grad`` counted with its bytes."""
+    x, (scale, bias, mean, var), count = _bn_world(dev, g, rows, c, dtype, 1)
+    stats, _ = bn_k.bn_moments(x, scale, bias, mean, var, count,
+                               momentum=0.9, eps=1e-5, training=False)
+    gy = torch.randn(x.shape, device=dev).to(dtype)
+    launches, nbytes = dict(K.LAUNCHES), dict(K.BYTES)
+    dx, dscale, dbias = bn_k.bn_grad(gy, x, stats, relu=relu)
+    parts = bn_k.stat_geometry(g, rows, c, x.element_size(), True,
+                               bn_k._sms(dev.index or 0))[2]
+    assert K.LAUNCHES["bn_grad"] == launches["bn_grad"] + 1
+    assert K.BYTES["bn_grad"] == nbytes["bn_grad"] + bn_k.bn_grad_bytes(
+        x.numel(), x.element_size(), g, c, parts)
+    assert K.LAUNCHES["bn_act"] == launches["bn_act"]
+    assert K.BYTES["bn_act"] == nbytes["bn_act"]
+    want_dx, _, _ = bn_ref.bn_grad(gy, x, stats, relu=relu)
+    err = (dx.double() - want_dx.double()).abs()
+    scale_dx = float(want_dx.double().abs().max())
+    assert bool((err <= torch.finfo(dtype).eps * want_dx.double().abs()
+                 + 1e-5 * scale_dx).all())
+    y = bn_k.bn_act(x, stats[2], stats[3], relu=relu)
+    gm = torch.where(y > 0, gy, 0).double() if relu else gy.double()
+    d = x.double() - stats[0].double()[:, None]
+    for got, terms in ((dbias, gm), (dscale / stats[4], gm * d)):
+        want = terms.sum(dim=1)
+        assert bool(((got.double() - want).abs()
+                     <= 1e-5 * terms.abs().sum(dim=1) + 1e-30).all())
+
+
+@pytest.mark.parametrize("g,rows,c", [(1, 12800 * 1024, 16),
+                                      (100, 128 * 1024, 16),
+                                      (1, 12800 * 64, 64)])
+def test_bn_train_op_against_the_autograd_chain(dev, g, rows, c):
+    """A training BatchNorm through ``batchnorm_act_apply(use_kernel=True)``
+    against the same call on the plain chain: y and the running state
+    within one bf16 / f32 rounding of the moments, the gradients close; one
+    launch of each of ``bn_moments``, ``bn_act`` (K2) and ``bn_grad``; and
+    less device memory held for the forward + backward."""
+    from repro_torch.nn import norm
+    x, (scale, bias, mean, var), count = _bn_world(dev, g, rows, c,
+                                                   torch.bfloat16, 2)
+    if g == 1:
+        x, scale, bias, mean, var, count = (
+            x[0].reshape(-1, 32, 32, c), scale[0], bias[0], mean[0], var[0],
+            count[0])
+    else:
+        x = x.reshape(g, -1, 32, 32, c)
+    gy = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+
+    def run(use_kernel):
+        p = {"scale": scale.clone().requires_grad_(),
+             "bias": bias.clone().requires_grad_()}
+        xx = x.clone().requires_grad_()
+        st = {"mean": mean, "var": var, "count": count}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launches()
+        y, new = norm.batchnorm_act_apply(p, st, xx, training=True,
+                                          use_kernel=use_kernel)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return (y.detach(), new, xx.grad, p["scale"].grad, p["bias"].grad,
+                dict(K.LAUNCHES), peak)
+
+    old, new = run(False), run(True)
+    assert new[5]["bn_moments"] == new[5]["bn_act"] == \
+        new[5]["bn_grad"] == 1
+    assert old[5]["bn_moments"] == old[5]["bn_grad"] == 0
+    assert new[6] < old[6], (new[6], old[6])
+    # the two take their moments in other orders (about 1e-6 apart), which
+    # moves a rounding or a ReLU edge of values of size 10 at most
+    ulp = torch.finfo(torch.bfloat16).eps
+    assert bool(((new[0].float() - old[0].float()).abs()
+                 <= ulp * old[0].float().abs() + 1e-4).all())
+    for key in ("mean", "var"):
+        assert torch.allclose(new[1][key], old[1][key], rtol=1e-5,
+                              atol=1e-6)
+    assert torch.equal(new[1]["count"], old[1]["count"])
+    for i in (2, 3, 4):
+        scale_i = float(old[i].float().abs().max())
+        assert float((new[i].float() - old[i].float()).abs().max()) \
+            <= 2 * ulp * scale_i, i
+
+
+def test_bn_valid_rows_keep_the_plain_code(dev):
+    """A row mask (elastic participation) keeps the plain statistics: no
+    ``bn_moments`` or ``bn_grad`` launch, K2 as before."""
+    from repro_torch.nn import norm
+    x, (scale, bias, mean, var), count = _bn_world(dev, 1, 4 * 64, 16,
+                                                   torch.bfloat16)
+    x = x[0].reshape(4, 8, 8, 16).requires_grad_()
+    st = {"mean": mean[0], "var": var[0], "count": count[0]}
+    K.reset_launches()
+    y, _ = norm.batchnorm_act_apply(
+        {"scale": scale[0], "bias": bias[0]}, st, x, training=True,
+        use_kernel=True, valid=torch.tensor([True, False, True, True],
+                                            device=dev))
+    y.float().sum().backward()
+    assert K.LAUNCHES["bn_moments"] == K.LAUNCHES["bn_grad"] == 0
+    assert K.LAUNCHES["bn_act"] == 1
 
 
 @pytest.mark.parametrize("rows,v", [(800, 100), (37, 13)] + [

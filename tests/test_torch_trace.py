@@ -8,8 +8,8 @@ with the phases nested in it, each BatchNorm call its ``bn.stats`` and
 bit for bit those of the round without a profiler, under which no span
 reaches the recorder; ``COUNTERS["sfpl"]`` counts the run; the kernels'
 ``LAUNCHES`` and ``BYTES`` are the registry's own groups, and each byte
-function of K1-K3 gives the bytes of the operands that the kernel's plain
-version reads and writes.
+function of K1-K3 and of the BatchNorm training op's kernels gives the
+bytes of the operands that the kernel's plain version reads and writes.
 """
 import json
 
@@ -162,8 +162,9 @@ def test_sfpl_counters_count_the_round(key, want):
 def test_launches_are_the_registry_group():
     assert K.LAUNCHES is T.COUNTERS["launches"]
     assert K.BYTES is T.COUNTERS["bytes"]
-    assert set(K.BYTES) == {"collector_permute", "bn_act", "xent_fwd",
-                            "xent_bwd"} <= set(K.LAUNCHES)
+    assert set(K.BYTES) == {"collector_permute", "bn_act", "bn_moments",
+                            "bn_grad", "xent_fwd", "xent_bwd"} \
+        <= set(K.LAUNCHES)
 
 
 def _nbytes(*tensors):
@@ -185,6 +186,44 @@ def _k2():
         _nbytes(x, a, b, bn_ref.bn_act(x, a, b))
 
 
+def _bn_train(training=True):
+    x = torch.randn(3, 20, 16).bfloat16()
+    vectors = [torch.rand(3, 16) for _ in range(4)]   # scale bias mean var
+    run_count = torch.zeros(3)
+    stats, new = bn_ref.bn_moments(x, *vectors, run_count, momentum=0.9,
+                                   eps=1e-5, training=training)
+    _, _, parts, _ = bn_k.stat_geometry(3, 20, 16, 2, True, 132)
+    return x, vectors, run_count, stats, new, parts
+
+
+def _bn_moments(training):
+    x, (scale, bias, mean, var), count, stats, new, parts = _bn_train(
+        training)
+    work = torch.empty(3 * parts * (2 * 16 + 1) + 3)       # partials, tickets
+    run = [mean, var, count, *new] if training else []
+    return bn_k.bn_moments_bytes(x.numel(), 2, 3, 16, parts, training), \
+        _nbytes(x, scale, bias, stats, work, work, *run)
+
+
+def _k2m():
+    return _bn_moments(True)
+
+
+def _k2m_cmsd():
+    return _bn_moments(False)
+
+
+def _k2g():
+    x, _, _, stats, _, parts = _bn_train()
+    gy = torch.randn_like(x)
+    dx, dscale, dbias = bn_ref.bn_grad(gy, x, stats, relu=True)
+    work = torch.empty(3 * parts * 2 * 16 + 3)             # partials, tickets
+    coef = torch.empty(2, 3, 16)                  # sum(g) / N, its var term
+    return bn_k.bn_grad_bytes(x.numel(), 2, 3, 16, parts), \
+        _nbytes(gy, x, stats[[0, 2, 3, 4]], work, work, coef, coef, dx,
+                dscale, dbias)
+
+
 def _xent():
     x = torch.randn(10, 7).bfloat16()
     lab = torch.randint(0, 7, (10,))
@@ -204,11 +243,14 @@ def _k3b():
         _nbytes(x, lab, lse.float(), g, xent_ref.xent_bwd(x, lab, lse, g))
 
 
-@pytest.mark.parametrize("launch", [_k1, _k2, _k3f, _k3b],
-                         ids=["K1", "K2", "K3f", "K3b"])
+@pytest.mark.parametrize("launch", [_k1, _k2, _k3f, _k3b, _k2m, _k2m_cmsd,
+                                    _k2g],
+                         ids=["K1", "K2", "K3f", "K3b", "bn_moments",
+                              "bn_moments_cmsd", "bn_grad"])
 def test_byte_functions_count_the_launch_operands(launch):
     """Every operand read once and every output written once, at the
     dtypes the launchers take: bf16 rows and logits, int64 indices and
-    labels, f32 affine, moments and row scales."""
+    labels, f32 affine, moments and row scales; the BatchNorm kernels'
+    partials and tickets written and read once."""
     counted, operands = launch()
     assert counted == operands
