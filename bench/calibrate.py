@@ -4,15 +4,17 @@ own size, all in one process:
 
 * the program's compared numbers over ``--seeds`` seeds (the lower
   readings);
-* the control's over ``--control-seeds`` seeds: the reference computed
-  with fp8 products (``reference.Precision("fp8")``), one step below the
-  configuration's bfloat16, put in the program's place;
-* the planted faults' over the same seeds: the reference with half of
-  the pool left out of the server's step, its mean taken over the rest:
-  the second half of the clients' rows (``half_batch``), or the second
-  half of the shuffled rows (``half_rows``); and the bfloat16 witness,
-  the reference with bfloat16 products and activations; and a state
-  left unchanged (``frozen``).
+* the control's and the planted faults' over ``--control-seeds``
+  seeds: the reference put in the program's place with each entry of the
+  cell's program module's ``FAULTS`` (``bench/programs/<model.arch>.py``).
+  For the split ResNet: ``control``, the reference computed with fp8
+  products (``reference.Precision("fp8")``), one step below the
+  configuration's bfloat16; the reference with half of the pool left out
+  of the server's step, its mean taken over the rest: the second half of
+  the clients' rows (``half_batch``), or the second half of the shuffled
+  rows (``half_rows``); the bfloat16 witness, the reference with bfloat16
+  products and activations (``bf16_witness``); and a state left
+  unchanged (``frozen``).
 
     python bench/calibrate.py --workload r56_c100.train_b128 --seeds 12 \
         --control-seeds 3 --first-seed 1000 --out cal.json
@@ -42,37 +44,34 @@ def free(dev):
 
 
 def readings(workload, seeds, control_seeds, device="cuda", root=None):
-    """``{"program": [...], "control": [...], "half_batch": [...]}``, each
-    a list of ``{"seed", numbers...}``."""
+    """``{"program": [...], <each key of the program module's FAULTS>:
+    [...]}``, each a list of ``{"seed", numbers...}``."""
     import torch
 
-    from bench import compare as C
     from bench import run, spec
 
     cell = spec.Cell(workload, root)
+    program = cell.program()
     dev = torch.device(device)
-    out = {"program": [], "control": [], "half_batch": [], "half_rows": [],
-           "bf16_witness": [], "frozen": []}
+    out = {"program": [], **{key: [] for key in program.FAULTS}}
     for s in seeds:
         t = time.perf_counter()
-        prog, st, data, _, got = run.checked_program(cell, s, dev)
-        del prog, st, data
+        run.build_kernels(dev)
+        runner, got = program.checked(cell, s, dev)
+        runner.free()
+        del runner
         free(dev)
-        want = run.checked_reference(cell, s, dev)
-        out["program"].append({"seed": s, **C.numbers(got, want),
+        want = program.reference(cell, s, dev)
+        out["program"].append({"seed": s, **program.numbers(got, want),
                                "seconds": time.perf_counter() - t})
         print(json.dumps({"program": out["program"][-1]}), file=sys.stderr,
               flush=True)
         free(dev)
     for s in control_seeds:
-        want = run.checked_reference(cell, s, dev)
-        for key, kw in (("control", {"precision": "fp8"}),
-                        ("half_batch", {"drop_half": "clients"}),
-                        ("half_rows", {"drop_half": "rows"}),
-                        ("bf16_witness", {"precision": "bfloat16"}),
-                        ("frozen", {"frozen": True})):
-            got = run.checked_reference(cell, s, dev, **kw)
-            out[key].append({"seed": s, **C.numbers(got, want)})
+        want = program.reference(cell, s, dev)
+        for key, kw in program.FAULTS.items():
+            got = program.reference(cell, s, dev, **kw)
+            out[key].append({"seed": s, **program.numbers(got, want)})
             print(json.dumps({key: out[key][-1]}), file=sys.stderr,
                   flush=True)
             free(dev)

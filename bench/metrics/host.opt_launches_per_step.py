@@ -5,8 +5,9 @@ the server's and the clients' updates together. Exact and the same from
 run to run. Left out where the program records no such span.
 
 Layer: the optimizer and host dispatch (``optim/sgd.py``: one
-elementwise chain for each parameter leaf). Moves
-``host_paced_samples_per_s``."""
+elementwise chain for each parameter leaf). Moves ``peak_mem_gib``, the
+cell's end-to-end metric besides ``setup_s``; ``host.samples_per_s`` is
+the rate it bears on."""
 from bench import spans
 
 

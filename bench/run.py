@@ -4,28 +4,32 @@
     python bench/run.py --workload r56_c100.train_b128 --seed 7 \
         --seconds 20 --trace 0
 
-One run, from the root of a checkout:
+One run, from the root of a checkout, drives the cell's program module,
+``bench/programs/<model.arch>.py`` (``spec.py`` states its contract; for
+the split ResNet a unit is one SFPL epoch):
 
 1. set-up (``setup_s``): import the port, build its kernels (cached in
-   ``build/kernels/`` and ``build/triton/`` of the checkout), make the
-   cell's images and weights on the card from ``--seed``, build the SFPL
-   state, and drive it through the checked first steps (``check_epochs``
-   of the traffic file: one step, then two, FedAvg after each) through
-   the same ``sfpl_round`` and data that the window uses; those steps
-   warm every shape the window runs;
-2. the window: whole SFPL epochs back to back from that state until
+   ``build/kernels/`` and ``build/triton/`` of the checkout), then the
+   module's ``checked``: for the split ResNet, make the cell's images and
+   weights on the card from ``--seed``, build the SFPL state, and drive
+   it through the checked first steps (``check_epochs`` of the traffic
+   file: one step, then two, FedAvg after each) through the same
+   ``sfpl_round`` and data that the window uses; those steps warm every
+   shape the window runs;
+2. the window: whole units back to back from that state until
    ``--seconds`` have passed, then a synchronise (``--trace 1``: then
-   the traffic's ``trace_epochs`` epochs twice under the profiler, once
+   the traffic's ``trace_epochs`` units twice under the profiler, once
    with the CUDA activity alone for the device's busy time, once with
    operator rows and shapes too);
-3. the check: the program's state is freed, the plain reference
-   (``reference.py``) follows the checked steps from the same weights,
-   images and permutations, and ``compare.py`` sets each number beside
-   its limit.
+3. the check: the program's state is freed, the module's plain reference
+   (the split ResNet's: ``reference.py``) follows the checked steps from
+   the same weights, data and permutations, and its ``numbers`` (the
+   split ResNet's: ``compare.py``) are set beside the cell's limits.
 
 The last line of standard output is the result as one JSON object; the
 numbers compared are the last lines of standard error. Without a card, or
-with fewer cards than the cell asks for, it prints no result and exits 1.
+with fewer cards than the cell asks for, or where the cell's ``model.arch``
+has no program module, it prints no result and exits 1.
 """
 from __future__ import annotations
 
@@ -155,9 +159,20 @@ def checked_reference(cell, seed, dev, precision="float32",
             "params": out}
 
 
+def build_kernels(dev):
+    """On a card, the port's kernels, built once a run (cached in the
+    checkout) before any program module sets up."""
+    if dev.type == "cuda":
+        from bench import sut
+        sut.import_program()
+        from repro_torch.kernels import build
+        build.build_all()
+
+
 def execute(workload, seed, seconds, trace, device="cuda", root=None,
             t0=None):
-    """One run of a cell on ``device``: ``(result, checks)``."""
+    """One run of a cell on ``device``, driven through the cell's program
+    module (``spec.Cell.program``): ``(result, checks)``."""
     import torch
 
     from bench import compare as C
@@ -165,7 +180,8 @@ def execute(workload, seed, seconds, trace, device="cuda", root=None,
 
     t0 = time.perf_counter() if t0 is None else t0
     cell = spec.Cell(workload, root)
-    traffic, dep = cell.traffic, cell.config["deployment"]
+    traffic = cell.traffic
+    program = cell.program()
     dev = torch.device(device)
     on_card = dev.type == "cuda"
 
@@ -173,56 +189,49 @@ def execute(workload, seed, seconds, trace, device="cuda", root=None,
         if on_card:
             torch.cuda.synchronize(dev)
 
-    prog, st, data, perm_gen, prog_out = checked_program(cell, seed, dev)
+    build_kernels(dev)
+    runner, prog_out = program.checked(cell, seed, dev)
     sync()
     setup_s = time.perf_counter() - t0
-    clients = dep["clients"]
-    steps_per_epoch = dep["samples_per_client"] // traffic["client_batch"]
-    # the client samples an epoch consumes: a client's last partial batch
-    # is left out by the program
-    epoch_samples = clients * steps_per_epoch * traffic["client_batch"]
 
     # the window
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    window_losses, epochs, result = [], 0, {}
+    window_losses, units, result = [], 0, {}
     sync()
     w0 = time.perf_counter()
     while True:
-        st, ls = prog.epoch(perm_gen, st, data)
-        window_losses.append(ls)
-        epochs += 1
+        window_losses.append(runner.unit())
+        units += 1
         if time.perf_counter() - w0 >= seconds:
             break
     sync()
     window_s = time.perf_counter() - w0
-    samples = epochs * epoch_samples
+    samples = units * runner.samples_per_unit
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    # the same rate under two names: a cell the card paces reports the
-    # first, one that host dispatch paces the second, each with its bound
+    # a cell that host dispatch paces reads this rate per layer instead
+    # (``host.samples_per_s``): the host's speed moves it too far
     e2e = {"train_samples_per_s": samples / window_s,
-           "host_paced_samples_per_s": samples / window_s,
            "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s}
     metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                for m in cell.end_to_end()}
     device_extra = {}
     if trace:
-        # then whole epochs under the profiler, from the same state: the
+        # then whole units under the profiler, from the same state: the
         # device pass, then the full pass
         from bench import tracing as TR
 
         def traced():
-            nonlocal st
             for _ in range(traffic["trace_epochs"]):
-                st, ls = prog.epoch(perm_gen, st, data)
-                window_losses.append(ls)
+                window_losses.append(runner.unit())
         n = traffic["trace_epochs"]
         busy = TR.Busy(TR.profile(traced, full=False),
-                       samples=n * epoch_samples)
+                       samples=n * runner.samples_per_unit)
         events = TR.profile(traced)
-        tr = TR.Trace(events, cell=cell, steps=n * steps_per_epoch,
-                      samples=n * epoch_samples, busy=busy)
+        tr = TR.Trace(events, cell=cell, steps=n * runner.steps_per_unit,
+                      samples=n * runner.samples_per_unit, busy=busy)
         del events
+        tr.window_rate = samples / window_s    # before the profiler
         metrics = {}
         for m in cell.per_layer():
             v = cell.reader(m["name"])(tr)
@@ -239,11 +248,12 @@ def execute(workload, seed, seconds, trace, device="cuda", root=None,
     failed = nonfinite + sum(not math.isfinite(v) for v in losses)
 
     # the check, with the program's state freed
-    del st, data, window_losses, allw, prog
+    runner.free()
+    del runner, window_losses, allw
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    values = C.numbers(prog_out, checked_reference(cell, seed, dev))
+    values = program.numbers(prog_out, program.reference(cell, seed, dev))
     values["nonfinite"] = nonfinite
     ok, checks = C.judge(values, cell.limits)
     device_info = {"platform": "gpu" if on_card else "cpu",
@@ -276,6 +286,10 @@ def main(argv=None):
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("no src/repro_torch in this checkout: nothing to measure")
     set_cache_dirs(ROOT)
+    try:
+        cell.program()
+    except FileNotFoundError as e:
+        fail(str(e))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the benchmark needs a card")

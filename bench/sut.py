@@ -5,7 +5,7 @@ Everything the benchmark drives of ``repro_torch`` goes through here:
 ``DenseTake(num_clients, use_kernel=True)``, ``sgd_momentum`` for clients
 and server, and ``core.round.sfpl_round`` with ``bn_mode="cmsd"``. The
 weights and images are the benchmark's (``reference.init_params``,
-``data.positive_label_cifar``), handed to the program in its own tree
+``images.positive_label_cifar``), handed to the program in its own tree
 layout; the program builds its state from them.
 """
 from __future__ import annotations

@@ -3,8 +3,10 @@
 They check the contract's shape of ``BENCHMARK.json``, that a new
 configuration, traffic mix, cell or per-layer metric is found from its
 files alone, the yardstick's FLOP counts against hand counts, the trace
-reading on a CPU profile, the import check, and a tiny run of a cell on
-the CPU in which the port and the plain reference agree.
+reading on a CPU profile, the import check, a tiny run of a cell on
+the CPU in which the port and the plain reference agree, and a second
+model family (a split MLP) added as files only, whose program module is
+found by its ``model.arch``, run, calibrated and caught when broken.
 """
 import json
 import re
@@ -16,7 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from bench import compare, run, spec, tracing, yardstick
+from bench import calibrate, compare, run, spec, tracing, yardstick
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -327,3 +329,294 @@ def test_run_prints_no_result_without_a_card_or_a_program(tmp_path,
         capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+# --------------------------------------------------------------------------
+# a model family is its program module, found by model.arch
+
+MLP_PROGRAM = '''"""A two-part MLP trained the SFPL way: each client's layer on its own
+rows, the pooled cut activations shuffled, the server's layer on the
+shuffled pool, FedAvg of the client layers after every epoch."""
+import torch
+import torch.nn.functional as F
+
+from bench import run
+
+FAULTS = {"control": {"dtype": torch.bfloat16}, "frozen": {"frozen": True}}
+BACK = {back!r}
+
+
+def make(cell, seed, dev):
+    m, d = cell.config["model"], cell.config["deployment"]
+    gen = torch.Generator(dev).manual_seed(run.sub_seed(seed, 0))
+    centers = torch.randn(d["clients"], m["in_dim"], generator=gen,
+                          device=dev)
+    x = centers[:, None] + 0.5 * torch.randn(
+        d["clients"], d["samples_per_client"], m["in_dim"], generator=gen,
+        device=dev)
+    y = torch.arange(d["clients"], device=dev)[:, None].expand(
+        -1, d["samples_per_client"])
+    gen = torch.Generator(dev).manual_seed(run.sub_seed(seed, 1))
+    w1 = torch.randn(m["in_dim"], m["hidden"], generator=gen, device=dev)
+    w2 = torch.randn(m["hidden"], m["num_classes"], generator=gen,
+                     device=dev)
+    p = {"client.w": (w1 / m["in_dim"] ** 0.5).expand(
+        d["clients"], -1, -1).clone(), "server.w": w2 / m["hidden"] ** 0.5}
+    return x, y, p, torch.Generator().manual_seed(run.sub_seed(seed, 2))
+
+
+def fedavg(p):
+    w = p["client.w"]
+    return {**p, "client.w": w.mean(0, keepdim=True).expand_as(w).clone()}
+
+
+class Shuffle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, perm):
+        ctx.save_for_backward(perm)
+        return a[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, = ctx.saved_tensors
+        if BACK == "inverse":
+            return torch.empty_like(g).index_copy_(0, perm, g), None
+        return g[perm], None
+
+
+class Runner:
+    def __init__(self, cell, seed, dev):
+        self.x, self.y, self.p, self.perm_gen = make(cell, seed, dev)
+        self.lr = cell.config["optimizer"]["lr"]
+        self.batch = cell.traffic["client_batch"]
+        self.steps_per_unit = self.y.shape[1] // self.batch
+        self.samples_per_unit = self.y.shape[0] * self.steps_per_unit \\
+            * self.batch
+
+    def step(self, i):
+        sl = slice(i * self.batch, (i + 1) * self.batch)
+        p = {k: v.detach().requires_grad_() for k, v in self.p.items()}
+        a = torch.relu(torch.einsum("cbi,cih->cbh", self.x[:, sl],
+                                    p["client.w"])).flatten(0, 1)
+        perm = torch.randperm(a.shape[0], generator=self.perm_gen)
+        loss = F.cross_entropy(Shuffle.apply(a, perm) @ p["server.w"],
+                               self.y[:, sl].flatten()[perm])
+        loss.backward()
+        self.p = {k: (v - self.lr * v.grad).detach() for k, v in p.items()}
+        return loss.detach(), {k: v.grad for k, v in p.items()}
+
+    def epoch(self, steps, first=0):
+        out = [self.step(first + i) for i in range(steps)]
+        self.p = fedavg(self.p)
+        return out
+
+    def unit(self):
+        return torch.stack([ls for ls, _ in self.epoch(self.steps_per_unit)])
+
+    def free(self):
+        self.x = self.y = self.p = None
+
+
+def checked(cell, seed, dev):
+    r = Runner(cell, seed, dev)
+    start, steps, at = dict(r.p), [], 0
+    for n in cell.traffic["check_epochs"]:
+        steps += r.epoch(n, at)
+        at += n
+    return r, {"losses": [float(ls) for ls, _ in steps],
+               "grads": steps[0][1], "start": start, "params": dict(r.p)}
+
+
+def reference(cell, seed, dev, dtype=torch.float32, frozen=False):
+    x, y, p, perm_gen = make(cell, seed, dev)
+    start = dict(p)
+    x, p = x.to(dtype), {k: v.to(dtype) for k, v in p.items()}
+    lr, b = cell.config["optimizer"]["lr"], cell.traffic["client_batch"]
+    losses, first, at = [], None, 0
+    for n in cell.traffic["check_epochs"]:
+        for i in range(at, at + n):
+            xs, ys = x[:, i * b:(i + 1) * b], y[:, i * b:(i + 1) * b]
+            h = torch.einsum("cbi,cih->cbh", xs, p["client.w"])
+            a = torch.relu(h).flatten(0, 1)
+            perm = torch.randperm(a.shape[0], generator=perm_gen)
+            s, yp = a[perm], ys.flatten()[perm]        # shuffled at the cut
+            prob = torch.softmax((s @ p["server.w"]).float(), -1)
+            losses.append(float(-prob[torch.arange(len(yp)), yp].log()
+                                .mean()))
+            dlogit = ((prob - F.one_hot(yp, prob.shape[1])) / len(yp)).to(
+                dtype)
+            ds = dlogit @ p["server.w"].T
+            da = torch.empty_like(ds)
+            da[perm] = ds                         # de-shuffled on the way back
+            dh = da.reshape(h.shape) * (h > 0)
+            g = {"client.w": torch.einsum("cbi,cbh->cih", xs, dh),
+                 "server.w": s.T @ dlogit}
+            first = first or {k: v.float() for k, v in g.items()}
+            if not frozen:
+                p = {k: p[k] - lr * g[k] for k in p}
+        p, at = fedavg(p), at + n
+    return {"losses": losses, "grads": first, "start": start,
+            "params": {k: v.float() for k, v in p.items()}}
+
+
+def numbers(got, want):
+    def err(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / torch.linalg.vector_norm(b.double()))
+    step = lambda o, k: o["params"][k] - o["start"][k]
+    return {"loss_gap": max(abs(a - b) / abs(b) for a, b in
+                            zip(got["losses"], want["losses"])),
+            "grad_err": max(err(got["grads"][k], want["grads"][k])
+                            for k in want["grads"]),
+            "update_err": max(err(step(got, k), step(want, k))
+                              for k in want["params"])}
+'''
+MLP_LIMITS = {"loss_gap": 1e-4, "grad_err": 1e-4, "update_err": 1e-4,
+              "nonfinite": 0}
+
+
+def mlp_tree(tmp_path, back="inverse"):
+    """A copy of the benchmark's files with a second model family added as
+    files and entries only: ``split_mlp``, a two-part MLP on seeded
+    vectors, 4 clients of 32, batch 8, in the cell ``mlp.cpu``. ``back``:
+    the backward of its cut's shuffle, ``"inverse"`` or (a planted fault)
+    ``"again"``."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "bench", tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    b = tmp_path / "bench"
+    (b / "configs" / "tiny-mlp.json").write_text(json.dumps(
+        {"name": "tiny-mlp",
+         "model": {"arch": "split_mlp", "in_dim": 8, "hidden": 16,
+                   "num_classes": 4},
+         "deployment": {"clients": 4, "samples_per_client": 32},
+         "optimizer": {"lr": 0.5}}))
+    (b / "traffic" / "mlp_b8.json").write_text(json.dumps(
+        {"client_batch": 8, "check_epochs": [1, 2], "trace_epochs": 1}))
+    (b / "workloads" / "mlp.cpu.json").write_text(json.dumps(
+        {"limits": MLP_LIMITS}))
+    (b / "programs" / "split_mlp.py").write_text(
+        MLP_PROGRAM.replace("{back!r}", repr(back)))
+    (b / "metrics" / "mlp.kernel_count.py").write_text(
+        "def read(trace):\n    return len(trace.kernels) or None\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny-mlp", "source": "test",
+                             "file": "bench/configs/tiny-mlp.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "mlp.cpu", "config": "tiny-mlp",
+                               "traffic": "mlp_b8", "chips": 1,
+                               "why": "test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "train_samples_per_s":
+            m["workloads"].append("mlp.cpu")
+    bench["per_layer"].append({"name": "mlp.kernel_count",
+                               "unit": "kernels", "better": "lower",
+                               "source": "device_trace", "layer": "device",
+                               "moves": "train_samples_per_s",
+                               "workloads": ["mlp.cpu"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp_path
+
+
+def _without(bench, cell):
+    """``BENCHMARK.json`` with the entries that name ``cell``, its
+    configuration and metrics taken out, and ``cell`` out of every
+    ``workloads`` list."""
+    entry = next(w for w in bench["workloads"] if w["name"] == cell)
+    out = dict(bench)
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        out[key] = [{**e, **({"workloads": [w for w in e["workloads"]
+                                            if w != cell]}
+                             if "workloads" in e else {})}
+                    for e in bench[key]
+                    if e["name"] not in (cell, entry["config"])
+                    and e.get("workloads") != [cell]]
+    return out
+
+
+def test_a_second_family_runs_from_new_files_only(tmp_path):
+    root = mlp_tree(tmp_path)
+    result, checks = run.execute("mlp.cpu", 2 ** 31 + 313, 0.2, 0,
+                                 device="cpu", root=root)
+    assert result["correct"], checks
+    assert list(checks) == list(MLP_LIMITS)
+    assert result["failed"] == 0 and result["attempted"] >= 3 + 4
+    assert result["metrics"]["train_samples_per_s"]["value"] > 0
+    for path in (ROOT / "bench").rglob("*"):
+        rel = path.relative_to(ROOT)
+        if path.is_file() and not {"__pycache__", "tests"} & set(rel.parts):
+            assert (root / rel).read_bytes() == path.read_bytes(), rel
+    assert _without(json.loads((root / "BENCHMARK.json").read_text()),
+                    "mlp.cpu") == BENCH
+
+
+def test_a_second_family_with_its_shuffle_not_undone_is_not_correct(
+        tmp_path):
+    root = mlp_tree(tmp_path, back="again")
+    result, checks = run.execute("mlp.cpu", 2 ** 31 + 313, 0.1, 0,
+                                 device="cpu", root=root)
+    assert not result["correct"], checks
+    assert checks["grad_err"]["value"] > checks["grad_err"]["limit"]
+
+
+@pytest.mark.parametrize("workload", ["tiny.cpu", "mlp.cpu"])
+def test_calibrate_reads_the_program_and_every_fault(tmp_path, workload):
+    root = (tiny_tree if workload == "tiny.cpu" else mlp_tree)(tmp_path)
+    cell = spec.Cell(workload, root)
+    faults = cell.program().FAULTS
+    got = calibrate.readings(workload, [41], [41], device="cpu", root=root)
+    assert list(got) == ["program", *faults]
+    assert all([r["seed"] for r in rows] == [41] for rows in got.values())
+    ok = {key: compare.judge({**rows[0], "nonfinite": 0}, cell.limits)[0]
+          for key, rows in got.items()}
+    assert ok["program"] and not ok["control"], got
+
+
+def _no_module_tree(tmp_path):
+    """``tiny_tree`` with the tiny configuration's arch one that has no
+    program module."""
+    root = tiny_tree(tmp_path)
+    path = root / "bench" / "configs" / "tiny.json"
+    cfg = json.loads(path.read_text())
+    cfg["model"]["arch"] = "no_such_arch"
+    path.write_text(json.dumps(cfg))
+    return root
+
+
+def test_an_arch_without_a_program_module_is_named(tmp_path):
+    root = _no_module_tree(tmp_path)
+    with pytest.raises(FileNotFoundError,
+                       match=r"'no_such_arch'.*programs/no_such_arch\.py"):
+        spec.Cell("tiny.cpu", root).program()
+
+
+def test_run_prints_no_result_for_an_arch_without_a_module(tmp_path):
+    root = _no_module_tree(tmp_path)
+    (root / "src").symlink_to(ROOT / "src")
+    out = subprocess.run(
+        [sys.executable, "bench/run.py", "--workload", "tiny.cpu",
+         "--seed", "7", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, timeout=120, cwd=root)
+    assert out.returncode == 1
+    assert out.stdout == ""
+    assert "no program module for model.arch 'no_such_arch'" in out.stderr
+
+
+def test_the_resnet_module_reads_as_the_functions_it_adapts(tmp_path):
+    """``tiny.cpu`` through ``run.execute`` and through the module's calls
+    gives the numbers of ``run.checked_program`` and
+    ``run.checked_reference`` at the same seed."""
+    root = tiny_tree(tmp_path)
+    seed = 2 ** 31 + 977
+    cell = spec.Cell("tiny.cpu", root)
+    dev = torch.device("cpu")
+    old = compare.numbers(run.checked_program(cell, seed, dev)[-1],
+                          run.checked_reference(cell, seed, dev))
+    _, checks = run.execute("tiny.cpu", seed, 0.1, 0, device="cpu",
+                            root=root)
+    assert {k: c["value"] for k, c in checks.items() if k != "nonfinite"} \
+        == {k: old[k] for k in checks if k != "nonfinite"}
+    program = cell.program()
+    runner, got = program.checked(cell, seed, dev)
+    runner.free()
+    assert program.numbers(got, program.reference(cell, seed, dev)) == old
