@@ -5,7 +5,10 @@ The port registers the JAX package's ten architectures: the dense
 transformers qwen3-8b, gemma-7b, minitron-8b and phi3-medium-14b, the MoE
 transformers llama4-scout-17b-a16e and llama4-maverick-400b-a17b, the VLM
 backbone qwen2-vl-7b, the xLSTM family's xlstm-1.3b, the RG-LRU hybrid
-recurrentgemma-9b and the encoder-decoder whisper-large-v3.
+recurrentgemma-9b and the encoder-decoder whisper-large-v3
+(``list_archs``). ``get_arch`` also resolves the port's own architectures,
+which the JAX package does not have and ``list_archs`` leaves out:
+afmoe's trinity-mini.
 ``input_specs`` returns meta-device stand-ins for a step's inputs (no
 storage is allocated).
 """
@@ -20,6 +23,7 @@ import torch
 from repro_torch.configs.shapes import InputShape
 
 _REGISTRY = {}
+_OWN = {}
 _FAMILIES = {"transformer": "repro_torch.models.transformer",
              "xlstm": "repro_torch.models.xlstm",
              "rglru": "repro_torch.models.rglru",
@@ -48,8 +52,9 @@ class ArchSpec:
         return None
 
 
-def register(spec: ArchSpec):
-    _REGISTRY[spec.arch_id] = spec
+def register(spec: ArchSpec, *, own=False):
+    """Register ``spec``; ``own``: an architecture of the port alone."""
+    (_OWN if own else _REGISTRY)[spec.arch_id] = spec
     return spec
 
 
@@ -57,26 +62,29 @@ _ARCH_MODULES = ["qwen3_8b", "gemma_7b", "minitron_8b", "phi3_medium_14b",
                  "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b",
                  "qwen2_vl_7b", "xlstm_1_3b", "recurrentgemma_9b",
                  "whisper_large_v3"]
+_OWN_MODULES = ["trinity_mini"]
 _loaded = False
 
 
 def _ensure_loaded():
     global _loaded
     if not _loaded:
-        for m in _ARCH_MODULES:
+        for m in _ARCH_MODULES + _OWN_MODULES:
             importlib.import_module(f"repro_torch.configs.{m}")
         _loaded = True
 
 
 def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
-    if arch_id not in _REGISTRY:
+    spec = _REGISTRY.get(arch_id, _OWN.get(arch_id))
+    if spec is None:
         raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(_REGISTRY)}")
-    return _REGISTRY[arch_id]
+                       f"{sorted(_REGISTRY) + sorted(_OWN)}")
+    return spec
 
 
 def list_archs():
+    """The architectures the port shares with the JAX package."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 

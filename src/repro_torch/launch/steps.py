@@ -7,6 +7,40 @@ import contextlib
 from repro_torch.sharding.dtensor import is_dtensor
 from repro_torch.tree import grads as tree_grads, tree_leaves, with_grad
 
+# leaves that no gradient reaches and no optimizer steps: the dropless
+# MoE's expert bias, stepped by its own rule after the update
+BUFFERS = ("expert_bias",)
+
+
+def _split(tree):
+    """``(trainable, buffers)``: ``tree`` without and with only the leaves
+    named in ``BUFFERS`` (empty dicts pruned from the second)."""
+    if not isinstance(tree, dict):
+        return tree, None
+    keep, held = {}, {}
+    for k, v in tree.items():
+        if k in BUFFERS:
+            held[k] = v
+            continue
+        a, b = _split(v)
+        keep[k] = a
+        if b:
+            held[k] = b
+    return keep, held
+
+
+def _merge(tree, buffers):
+    if not buffers:
+        return tree
+    return {**tree, **{k: (_merge(tree[k], v) if k in tree else v)
+                       for k, v in buffers.items()}}
+
+
+def trainable(params):
+    """``params`` without its buffers: what an optimizer is initialised
+    on and steps."""
+    return _split(params)[0]
+
 
 def sharded_scope(params):
     """The scope a step runs in: with DTensor params (a sharded step, see
@@ -19,18 +53,28 @@ def sharded_scope(params):
     return implicit_replication()
 
 
-def make_train_step(spec, cfg, optimizer, *, sfpl=False, cut_groups=1):
+def make_train_step(spec, cfg, optimizer, *, sfpl=False, cut_groups=None):
     """Returns ``train_step(params, opt_state, step, batch) -> (params,
     opt_state, step + 1, loss)``: the gradient of the model's loss, then
-    ``optimizer.update``.
+    ``optimizer.update`` of the trainable leaves (``trainable``; the
+    optimizer's state is made from them), then each dropless MoE layer's
+    expert bias stepped by the token-slots per expert that the forward
+    routed (once a step: the counts are read before the backward and its
+    recompute).
 
     With ``sfpl=True`` (transformer family) the batch dict must contain
     "perm", the global-collector permutation: the smashed data is
-    shuffled at the cut layer inside the step and the gradient de-shuffle
-    is the backward of that gather. The xLSTM has no cut: it runs its
-    plain loss, as in the JAX package.
+    shuffled at the cut inside the step and the gradient de-shuffle is
+    the backward of that gather. The cut follows ``cut_groups`` units
+    (``models.transformer.units``); by default the leading dense layers,
+    or else one group. The xLSTM has no cut: it runs its plain loss, as
+    in the JAX package.
     """
+    from repro_torch.nn.moe import record_routing
+
     model = spec.model
+    if cut_groups is None:
+        cut_groups = getattr(cfg, "num_dense_layers", 0) or 1
 
     def loss_of(params, batch):
         if sfpl and spec.family == "transformer":
@@ -41,11 +85,17 @@ def make_train_step(spec, cfg, optimizer, *, sfpl=False, cut_groups=1):
         return model.loss_fn(params, clean, cfg, training=True)
 
     def train_step(params, opt_state, step, batch):
+        params, buffers = _split(params)
         with sharded_scope(params):
             p = with_grad(params)
-            loss, _ = loss_of(p, batch)
+            with record_routing() as routes:
+                loss, _ = loss_of(_merge(p, buffers), batch)
             new_params, new_opt = optimizer.update(tree_grads(loss, p),
                                                    opt_state, params, step)
+        new_params = _merge(new_params, buffers)
+        if routes.counts:
+            new_params = model.update_expert_bias(new_params, routes.counts,
+                                                  cfg)
         return new_params, new_opt, step + 1, loss.detach()
 
     return train_step

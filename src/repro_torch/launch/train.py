@@ -77,7 +77,7 @@ def train_lm(arch_id, *, steps=50, batch=8, seq=64, smoke=True, sfpl=False,
                                          synthetic_token_stream,
                                          vision_embeds)
     from repro_torch.device import resolve_device
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import make_train_step, trainable
     from repro_torch.optim import adamw, cosine_lr, sgd_momentum
 
     dev = resolve_device(device)
@@ -88,7 +88,7 @@ def train_lm(arch_id, *, steps=50, batch=8, seq=64, smoke=True, sfpl=False,
     params = model.init(gen, cfg)
     opt = (adamw(cosine_lr(lr, steps)) if optimizer == "adamw"
            else sgd_momentum(cosine_lr(lr, steps), momentum=0.9))
-    opt_state = opt.init(params)
+    opt_state = opt.init(trainable(params))
     step_fn = make_train_step(spec, cfg, opt, sfpl=sfpl)
 
     step = 0

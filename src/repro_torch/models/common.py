@@ -207,7 +207,7 @@ class TransformerConfig:
     tie_embeddings: bool = True
     logit_softcap: float = 0.0              # 0 = off
     # MoE
-    num_experts: int = 0
+    num_experts: int = 0                    # the router's outputs
     d_ff_dense: int = 0                     # dense-layer MLP width; 0 = d_ff
     moe_layer_period: int = 1
     moe_shared_expert: bool = True
@@ -219,15 +219,27 @@ class TransformerConfig:
     # execution
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    attention_impl: str = "xla"             # "xla" | "kernel" (K7)
+    attention_impl: str = "xla"             # "xla" | "kernel" (K7) | "flex"
     remat: bool = True
     scan_layers: bool = True
     mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
     vision_tokens: int = 0                  # > 0 expects vision_embeds
 
+    # afmoe's parts, absent here: class attributes, so that this class's
+    # fields stay the JAX package's (``AfmoeConfig`` sets them)
+    moe_routing = "top1"        # llama4's capacity-dropping top-1
+    global_rope = True          # RoPE on the full layers too
+    attn_out_gate = False
+    sandwich_norm = False       # RMSNorm after the attention and FFN too
+    num_dense_layers = 0
+
     @property
     def group_size(self) -> int:
-        """Layers per stacked group (lcm of the layer-pattern periods)."""
+        """Layers per stacked group (lcm of the layer-pattern periods; 1
+        with leading dense layers, whose kinds follow the absolute
+        index)."""
+        if self.num_dense_layers:
+            return 1
         g = 1
         if self.num_experts and self.moe_layer_period > 1:
             g = _lcm(g, self.moe_layer_period)
@@ -236,9 +248,11 @@ class TransformerConfig:
         return g
 
     def layer_kind(self, idx: int) -> dict:
-        """Static description of layer ``idx``'s flavour."""
-        is_moe = bool(self.num_experts) and (
-            (idx + 1) % max(self.moe_layer_period, 1) == 0)
+        """Static description of layer ``idx``'s flavour (``idx`` is the
+        absolute index; the periods divide the group size, so a layer's
+        place in its group gives the same)."""
+        is_moe = bool(self.num_experts) and idx >= self.num_dense_layers \
+            and (idx + 1) % max(self.moe_layer_period, 1) == 0
         if self.global_attn_period:
             is_global = (idx + 1) % self.global_attn_period == 0
             window = None if is_global else self.sliding_window
@@ -251,6 +265,28 @@ class TransformerConfig:
 
     def cdtype(self):
         return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AfmoeConfig(TransformerConfig):
+    """A transformer with afmoe's parts (trinity-mini), which the JAX
+    package does not have: the MoE is sigmoid top-k over every expert,
+    its weights normalised and scaled, dropless, computing the held
+    experts' rows (``nn.moe.moe_dropless_apply``, TorchTitan's token
+    choice); the full layers have no RoPE; the attention's output is
+    gated by ``sigmoid(h @ w_gate)``; an RMSNorm follows the attention
+    and the FFN as well as preceding them."""
+    moe_routing = "dropless"
+    global_rope = False
+    attn_out_gate = True
+    sandwich_norm = True
+    moe_top_k: int = 8
+    route_scale: float = 1.0
+    experts_held: Optional[Tuple[int, int]] = None  # (offset, count); None=all
+    expert_bias_rate: float = 0.0           # aux-loss-free bias step
+    # leading dense layers, stacked apart; with any, layer kinds follow the
+    # absolute index and the other layers are stacked one a group
+    num_dense_layers: int = 0
 
 
 def _lcm(a, b):
@@ -286,16 +322,43 @@ def maybe_remat(fn, enabled):
 
 def take_rows(x, perm):
     """``x[perm]`` along the batch dim: SFPL's collector shuffle of the
-    smashed data (and their labels). On a DTensor the batch is gathered
-    whole (the collector's exchange), each device permutes it, and the
-    result is laid out as ``x`` was; its backward is the de-shuffle."""
+    smashed data (and their labels). A plain float CUDA tensor goes
+    through the collector's K1 (``collector_permute``) over its rows of
+    the last dim, the batch permutation expanded to them, under the
+    ``collector.permute`` span and counted in
+    ``COUNTERS["sfpl"]["permuted_bytes"]``. On a DTensor the batch is
+    gathered whole (the collector's exchange), each device permutes it,
+    and the result is laid out as ``x`` was; its backward is the
+    de-shuffle."""
     if not is_dtensor(x):
+        if x.is_cuda and x.is_floating_point() and x.dim() >= 2:
+            return _k1_take_rows(x, perm.to(x.device))
         return x.index_select(0, perm.to(x.device))
     mesh_axes = mesh_axes_of(x.device_mesh)
     whole = (None,) * x.dim()
     out = local_region(lambda x_, p_: x_.index_select(0, p_), mesh_axes,
                        [whole, (None,)], whole)(x, perm)
     return out.redistribute(x.device_mesh, x.placements)
+
+
+def expand_perm(perm, inner):
+    """A permutation of ``len(perm)`` blocks of ``inner`` rows each, as a
+    permutation of the rows: row ``i * inner + j`` of the result is row
+    ``perm[i] * inner + j`` of the input."""
+    j = torch.arange(inner, device=perm.device, dtype=torch.int64)
+    return (perm.long()[:, None] * inner + j).reshape(-1)
+
+
+def _k1_take_rows(x, perm):
+    from repro_torch.kernels.collector_permute.ops import collector_permute
+    from repro_torch.trace import COUNTERS, span
+    with span("collector.permute"):
+        COUNTERS["sfpl"]["permuted_bytes"] += x.numel() * x.element_size()
+        d = x.shape[-1]
+        rows = x.reshape(-1, d)
+        out = collector_permute(rows, expand_perm(perm,
+                                                  rows.shape[0] // len(perm)))
+        return out.reshape(x.shape)
 
 
 def constrain_dims(x, mesh_axes, roles):

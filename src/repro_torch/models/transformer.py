@@ -2,14 +2,19 @@
 ``collector_perm``), prefill and cached decode: the dense GQA
 architectures (qwen3-8b and its kin), the MoE ones (llama4-scout and
 llama4-maverick: top-1 MoE with a shared expert, iRoPE's 3 local : 1
-global attention pattern) and the VLM backbone (qwen2-vl-7b: M-RoPE and
-stub vision embeddings merged after BOS).
+global attention pattern), the VLM backbone (qwen2-vl-7b: M-RoPE and
+stub vision embeddings merged after BOS) and afmoe (trinity-mini: two
+leading dense layers, then dropless sigmoid top-8 MoE layers with a
+shared expert; 3 windowed RoPE layers : 1 full layer without RoPE; a
+sigmoid gate on the attention's output and four RMSNorms a layer).
 
 Layers are grouped into units of ``cfg.group_size`` (the lcm of the
 MoE-period and attention-pattern period); per-group parameters are stacked
 on a leading ``num_groups`` axis exactly as the JAX package stacks them, so
 parameter trees carry across (``repro_torch.convert``). The JAX package's
-``lax.scan`` over the groups is a Python loop here.
+``lax.scan`` over the groups is a Python loop here. Leading dense layers
+(``cfg.num_dense_layers``) are a stack of their own,
+``params["dense_layers"]``, run before the groups, one layer a group.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ from repro_torch.nn.linear import (
     dense_init, dense_apply, embedding_init, embedding_apply,
     embedding_attend)
 from repro_torch.nn.mlp import mlp_init, mlp_apply
-from repro_torch.nn.moe import moe_init, moe_apply, router_load_balance_loss
+from repro_torch.nn.moe import (expert_bias_step, moe_apply,
+                                moe_dropless_apply, moe_dropless_init,
+                                moe_init, router_load_balance_loss)
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
 from repro_torch.tree import tree_map, tree_map_with_path
 
@@ -39,6 +46,8 @@ def _attn_cfg(cfg: TransformerConfig, window):
         qk_norm=cfg.qk_norm, use_bias=cfg.attn_bias,
         rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
         sliding_window=window, impl=cfg.attention_impl,
+        use_rope=cfg.global_rope or window is not None,
+        out_gate=cfg.attn_out_gate, norm_eps=cfg.norm_eps,
         mesh_axes=cfg.mesh_axes)
 
 
@@ -53,7 +62,15 @@ def _layer_init(gen, cfg: TransformerConfig, kind):
                                dtype=dt),
         "mlp_norm": rmsnorm_init(gen, cfg.d_model, dtype=dt),
     }
-    if kind["moe"]:
+    if cfg.sandwich_norm:
+        p["post_attn_norm"] = rmsnorm_init(gen, cfg.d_model, dtype=dt)
+        p["post_mlp_norm"] = rmsnorm_init(gen, cfg.d_model, dtype=dt)
+    if kind["moe"] and cfg.moe_routing == "dropless":
+        p["moe"] = moe_dropless_init(gen, cfg.d_model, cfg.d_ff,
+                                     cfg.num_experts, held=cfg.experts_held,
+                                     shared_expert=cfg.moe_shared_expert,
+                                     dtype=dt)
+    elif kind["moe"]:
         p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
                             shared_expert=cfg.moe_shared_expert, dtype=dt)
     else:
@@ -71,7 +88,8 @@ def init(gen, cfg: TransformerConfig):
     if cfg.num_layers % G:
         raise ValueError(f"num_layers {cfg.num_layers} is not a multiple of "
                          f"the group size {G}")
-    num_groups = cfg.num_layers // G
+    nd = cfg.num_dense_layers
+    num_groups = (cfg.num_layers - nd) // G
     dt = cfg.pdtype()
     params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype=dt),
@@ -81,10 +99,23 @@ def init(gen, cfg: TransformerConfig):
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        use_bias=False, dtype=dt)
 
+    if nd:
+        params["dense_layers"] = stacked_init(
+            lambda: {"sub0": _layer_init(gen, cfg, cfg.layer_kind(0))}, nd)
     params["layers"] = stacked_init(
-        lambda: {f"sub{p}": _layer_init(gen, cfg, cfg.layer_kind(p))
+        lambda: {f"sub{p}": _layer_init(gen, cfg, cfg.layer_kind(nd + p))
                  for p in range(G)}, num_groups)
     return params
+
+
+def units(cfg: TransformerConfig):
+    """The model's units in order, each ``(stack, index, first layer)``:
+    the leading dense layers, then the groups. SFPL's ``cut_groups``
+    counts units."""
+    nd, G = cfg.num_dense_layers, cfg.group_size
+    return ([("dense_layers", i, i) for i in range(nd)]
+            + [("layers", g, nd + g * G)
+               for g in range((cfg.num_layers - nd) // G)])
 
 
 # --------------------------------------------------------------------------
@@ -95,21 +126,28 @@ def cast_for_compute(tree, cfg: TransformerConfig):
     cd = cfg.cdtype()
 
     def leafcast(path, a):
-        if "router" in path or not a.is_floating_point():
+        if "router" in path or "expert_bias" in path or \
+                not a.is_floating_point():
             return a
         return a.to(cd)
     return tree_map_with_path(leafcast, tree)
 
 
-def _layer(params, g, p):
-    """Layer ``p`` of group ``g``: views into the stacked leaves."""
-    return tree_map(lambda a: a[g], params["layers"][f"sub{p}"])
+def _layer(params, g, p, stack="layers"):
+    """Layer ``p`` of group ``g`` of ``stack``: views into the stacked
+    leaves."""
+    return tree_map(lambda a: a[g], params[stack][f"sub{p}"])
 
 
 def _ffn(lp, h, cfg: TransformerConfig, kind):
     """The layer's MLP or MoE on ``h``: (y, the MoE's aux dict or None)."""
     if not kind["moe"]:
         return mlp_apply(lp["mlp"], h, act=cfg.act), None
+    if cfg.moe_routing == "dropless":
+        y, _ = moe_dropless_apply(
+            lp["moe"], h, num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+            held=cfg.experts_held, route_scale=cfg.route_scale, act=cfg.act)
+        return y, None
     dp_groups = 1
     for a, n in cfg.mesh_axes or ():
         if a != "model":
@@ -123,13 +161,14 @@ def _layer_apply(lp, x, cfg: TransformerConfig, kind, positions, training):
     """One layer: ``(x, aux_loss)``, the router's load-balance loss of an
     MoE layer in training when ``cfg.router_aux_coef`` is set, else 0."""
     lp = cast_for_compute(lp, cfg)
-    h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps,
-                      scale_offset=cfg.norm_scale_offset)
-    x = x + attention_apply(lp["attn"], h, _attn_cfg(cfg, kind["window"]),
-                            positions=positions)
-    h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps,
-                      scale_offset=cfg.norm_scale_offset)
-    y, aux = _ffn(lp, h, cfg, kind)
+    norm = lambda name, v: rmsnorm_apply(lp[name], v, eps=cfg.norm_eps,
+                                         scale_offset=cfg.norm_scale_offset)
+    o = attention_apply(lp["attn"], norm("attn_norm", x),
+                        _attn_cfg(cfg, kind["window"]), positions=positions)
+    x = x + (norm("post_attn_norm", o) if cfg.sandwich_norm else o)
+    y, aux = _ffn(lp, norm("mlp_norm", x), cfg, kind)
+    if cfg.sandwich_norm:
+        y = norm("post_mlp_norm", y)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     if aux is not None and training and cfg.router_aux_coef:
         aux_loss = router_load_balance_loss(
@@ -225,37 +264,39 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     if positions is None:
         positions = _default_positions(cfg, B, S, tokens.device)
     G = cfg.group_size
+    order = units(cfg)
 
-    def group_fn(x, g):
+    def group_fn(x, u):
+        stack, g, first = order[u]
+        n = 1 if stack == "dense_layers" else G
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in range(G):
+        for p in range(n):
             f = lambda x_, g_, p=p: _layer_apply(
-                _layer(params, g_, p), x_, cfg, cfg.layer_kind(p), positions,
-                training)
+                _layer(params, g_, p, stack), x_, cfg,
+                cfg.layer_kind(first + p), positions, training)
             # per-layer remat inside multi-layer groups
-            x, aux = maybe_remat(f, cfg.remat and training and G > 1)(x, g)
+            x, aux = maybe_remat(f, cfg.remat and training and n > 1)(x, g)
             aux_total = aux_total + aux
         return constrain_act(x, cfg), aux_total
 
-    # one checkpoint a group when G == 1: nesting both double-recomputes
+    # one checkpoint a group of one layer: nesting both double-recomputes
     body = maybe_remat(group_fn, cfg.remat and training and G == 1)
 
     def run_groups(x, lo, hi):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(lo, hi):
-            x, a = body(x, g)
+        for u in range(lo, hi):
+            x, a = body(x, u)
             aux = aux + a
         return x, aux
 
-    num_groups = cfg.num_layers // G
     if collector_perm is not None:
         # client-side portion -> smashed data -> global collector shuffle
         x, aux1 = run_groups(x, 0, cut_groups)
         x = take_rows(x, collector_perm)
-        x, aux2 = run_groups(x, cut_groups, num_groups)
+        x, aux2 = run_groups(x, cut_groups, len(order))
         aux = aux1 + aux2
     else:
-        x, aux = run_groups(x, 0, num_groups)
+        x, aux = run_groups(x, 0, len(order))
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       scale_offset=cfg.norm_scale_offset)
     if last_token_only:
@@ -263,6 +304,29 @@ def forward(params, batch_in, cfg: TransformerConfig, *, training=False,
     if return_hidden:
         return x, aux
     return unembed(params, x, cfg).float(), aux
+
+
+def update_expert_bias(params, counts, cfg: TransformerConfig):
+    """``params`` with each dropless MoE layer's expert bias stepped by
+    the counts its forward call recorded (``nn.moe.record_routing``, in
+    the forward's order: units, then layers within a group)."""
+    if not counts:
+        return params
+    it = iter(counts)
+    new = {}
+    for stack, g, first in units(cfg):
+        n = 1 if stack == "dense_layers" else cfg.group_size
+        for p in range(n):
+            if cfg.layer_kind(first + p)["moe"]:
+                new.setdefault((stack, p), []).append(next(it))
+    out = dict(params)
+    for (stack, p), cs in new.items():
+        moe = params[stack][f"sub{p}"]["moe"]
+        bias = expert_bias_step(moe["expert_bias"], torch.stack(cs),
+                                cfg.expert_bias_rate)
+        out[stack] = {**out[stack], f"sub{p}": {
+            **out[stack][f"sub{p}"], "moe": {**moe, "expert_bias": bias}}}
+    return out
 
 
 def loss_fn(params, batch_in, cfg: TransformerConfig, *, training=True):
@@ -284,6 +348,9 @@ def init_decode_state(cfg: TransformerConfig, batch, max_len, *,
                       dtype=torch.bfloat16, device=None):
     """Stacked per-group KV caches (leading ``num_groups`` axis). SWA layers
     get window-sized ring slots."""
+    if cfg.num_dense_layers:
+        raise NotImplementedError("decode of a model with leading dense "
+                                  "layers")
     num_groups = cfg.num_layers // cfg.group_size
     cache = {}
     for p in range(cfg.group_size):
@@ -300,6 +367,8 @@ def decode_step(params, state, tokens, cfg: TransformerConfig, *, cur_pos):
     """tokens: (B, 1); state: the stacked caches; cur_pos: an int or a (B,)
     int tensor of per-slot positions. Writes the caches in place and
     returns (logits (B, 1, V) f32, state)."""
+    if cfg.num_dense_layers or cfg.sandwich_norm:
+        raise NotImplementedError("decode of afmoe's layers")
     x = _embed(params, tokens, cfg)
     G = cfg.group_size
     for g in range(cfg.num_layers // G):

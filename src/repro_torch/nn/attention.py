@@ -1,13 +1,22 @@
 """Grouped-query attention with RoPE or M-RoPE, qk-norm, sliding windows
 and a ring-buffer KV cache.
 
-Two execution paths, selected by ``AttnConfig.impl``:
+Three execution paths, selected by ``AttnConfig.impl``:
   * ``xla``    — the plain chunked online softmax in PyTorch (the JAX
                  package's ``xla`` path);
   * ``kernel`` — the flash-attention kernel (K7), the counterpart of the
                  JAX package's ``pallas`` / ``pallas_interpret``. Like the
                  JAX kernel path it ignores ``positions`` for the mask and
-                 assumes aligned positions 0..S-1.
+                 assumes aligned positions 0..S-1;
+  * ``flex``   — training attention on the card: PyTorch's
+                 ``flex_attention``, compiled, with its own backward and a
+                 causal (and windowed) block mask built once per (S,
+                 window), so a windowed layer skips the blocks outside its
+                 window. It too assumes aligned positions 0..S-1.
+
+The attention core of every path runs inside the ``attn.core`` span.
+``out_gate`` (afmoe) multiplies the core's output by ``sigmoid(x @
+w_gate)`` before ``wo``.
 
 Under M-RoPE (``mrope_sections``, qwen2-vl) positions are (3, B, S) and
 the ``xla`` path masks by the temporal ids ``positions[0]``, as the JAX
@@ -37,11 +46,12 @@ from repro_torch.nn.init import lecun_normal
 from repro_torch.nn.linear import dense_init, dense_apply
 from repro_torch.nn.norm import rmsnorm_init, rmsnorm_apply
 from repro_torch.nn.rope import apply_mrope, apply_rope
+from repro_torch.trace import span
 
 NEG_INF = -2.3819763e38  # large negative, bf16-safe masking
 # chunked scores (B, K, G, Sq, ck): batch over dp, Sq over "model"
 SCORE_ROLES = ("dp", None, None, "tp", None)
-IMPLS = ("xla", "kernel")
+IMPLS = ("xla", "kernel", "flex")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +66,8 @@ class AttnConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     sliding_window: Optional[int] = None  # None = global attention
     use_rope: bool = True
+    out_gate: bool = False
+    norm_eps: float = 1e-6      # the qk-norm's
     impl: str = "xla"
     kv_chunk: int = 4096        # online-softmax chunk of the xla path
     mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
@@ -77,6 +89,8 @@ def attention_init(gen, cfg: AttnConfig, *, dtype=torch.float32):
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(gen, D, dtype=dtype)
         p["k_norm"] = rmsnorm_init(gen, D, dtype=dtype)
+    if cfg.out_gate:
+        p["wgate"] = dense_init(gen, M, H * D, use_bias=False, dtype=dtype)
     return p
 
 
@@ -124,8 +138,8 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
     k = split_last(dense_apply(params["wk"], x), K, D)
     v = split_last(dense_apply(params["wv"], x), K, D)
     if cfg.qk_norm:
-        q = rmsnorm_apply(params["q_norm"], q)
-        k = rmsnorm_apply(params["k_norm"], k)
+        q = rmsnorm_apply(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm_apply(params["k_norm"], k, eps=cfg.norm_eps)
     if cfg.use_rope and cfg.mrope_sections is not None:
         q = apply_mrope(q, positions, theta=cfg.rope_theta,
                         sections=cfg.mrope_sections)
@@ -223,6 +237,41 @@ def _attention_chunks(q, k, v, scale, *, q_pos=None, kv_pos=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+_FLEX = {}
+
+
+def _flex_block_mask(seq, window, device):
+    """The block mask of causal attention over ``seq`` aligned positions,
+    and of ``window`` keys back where given; one per (seq, window,
+    device)."""
+    key = ("mask", seq, window, str(device))
+    if key not in _FLEX:
+        from torch.nn.attention.flex_attention import create_block_mask
+
+        if window is None:
+            def mask_mod(b, h, q, kv):
+                return q >= kv
+        else:
+            def mask_mod(b, h, q, kv):
+                return (q >= kv) & (q - kv < window)
+        _FLEX[key] = create_block_mask(mask_mod, None, None, seq, seq,
+                                       device=device)
+    return _FLEX[key]
+
+
+def _flex_attention(q, k, v, scale, window):
+    """q (B, S, H, D), k / v (B, S, K, D) -> (B, S, H, D) through the
+    compiled ``flex_attention`` (GQA by ``enable_gqa``)."""
+    if "fn" not in _FLEX:
+        from torch.nn.attention.flex_attention import flex_attention
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    mask = _flex_block_mask(q.shape[1], window, q.device)
+    out = _FLEX["fn"](q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), block_mask=mask, scale=scale,
+                      enable_gqa=q.shape[2] != k.shape[2])
+    return out.transpose(1, 2)
+
+
 def _kernel_specs(cfg: AttnConfig, batch):
     """(in specs, out spec) of the kernel path under ``mesh_axes``: the
     batch over dp and the heads over "model" where both the q and kv
@@ -251,25 +300,37 @@ def attention_apply(params, x, cfg: AttnConfig, *, positions,
         if cfg.qk_norm:
             q = rmsnorm_apply(params["q_norm"], q)
         k, v, kv_mask = kv_override
-        out = _xla_attention(q, k, v, scale, causal=False, kv_valid=kv_mask,
-                             kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
+        with span("attn.core"):
+            out = _xla_attention(q, k, v, scale, causal=False,
+                                 kv_valid=kv_mask, kv_chunk=cfg.kv_chunk,
+                                 mesh_axes=cfg.mesh_axes)
         return dense_apply(params["wo"], out.reshape(B, S, -1))
 
     q, k, v = _project_qkv(params, x, cfg, positions)
-    if cfg.impl == "kernel":
-        from repro_torch.kernels.flash_attention import ops as flash_ops
-        out = local_region(
-            lambda q_, k_, v_: flash_ops.flash_attention(
-                q_, k_, v_, causal=causal, window=cfg.sliding_window),
-            cfg.mesh_axes, *_kernel_specs(cfg, B))(q, k, v)
-    elif cfg.impl == "xla":
-        pq = positions if positions.dim() == 2 else positions[0]
-        out = _xla_attention(q, k, v, scale, q_pos=pq, kv_pos=pq,
-                             causal=causal, window=cfg.sliding_window,
-                             kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
-    else:
+    if cfg.impl not in IMPLS:
         raise ValueError(f"attention impl {cfg.impl!r} is not one of {IMPLS}")
-    out = dense_apply(params["wo"], out.reshape(B, S, -1))
+    with span("attn.core"):
+        if cfg.impl == "kernel":
+            from repro_torch.kernels.flash_attention import ops as flash_ops
+            out = local_region(
+                lambda q_, k_, v_: flash_ops.flash_attention(
+                    q_, k_, v_, causal=causal, window=cfg.sliding_window),
+                cfg.mesh_axes, *_kernel_specs(cfg, B))(q, k, v)
+        elif cfg.impl == "flex":
+            if not causal or cfg.mesh_axes:
+                raise ValueError("the flex path is causal self-attention "
+                                 "on plain tensors")
+            out = _flex_attention(q, k, v, scale, cfg.sliding_window)
+        else:
+            pq = positions if positions.dim() == 2 else positions[0]
+            out = _xla_attention(q, k, v, scale, q_pos=pq, kv_pos=pq,
+                                 causal=causal, window=cfg.sliding_window,
+                                 kv_chunk=cfg.kv_chunk,
+                                 mesh_axes=cfg.mesh_axes)
+    out = out.reshape(B, S, -1)
+    if cfg.out_gate:
+        out = out * torch.sigmoid(dense_apply(params["wgate"], x))
+    out = dense_apply(params["wo"], out)
     if return_kv:
         return out, (k, v)
     return out
@@ -330,7 +391,11 @@ def attention_decode(params, x, cfg: AttnConfig, *, cache, cur_pos):
     if cfg.sliding_window is not None:
         valid = valid & (pos_arr - pos < cfg.sliding_window)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    out = _xla_attention(q, k, v, scale, kv_valid=valid,
-                         kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
-    out = dense_apply(params["wo"], out.reshape(B, 1, -1))
+    with span("attn.core"):
+        out = _xla_attention(q, k, v, scale, kv_valid=valid,
+                             kv_chunk=cfg.kv_chunk, mesh_axes=cfg.mesh_axes)
+    out = out.reshape(B, 1, -1)
+    if cfg.out_gate:
+        out = out * torch.sigmoid(dense_apply(params["wgate"], x))
+    out = dense_apply(params["wo"], out)
     return out, cache

@@ -1,4 +1,6 @@
-"""Mixture-of-experts layer (top-1 routing, Llama-4 style).
+"""Mixture-of-experts layers: llama4's top-1 with capacity dropping
+(``moe_apply``) and afmoe's dropless sigmoid top-k over the experts this
+device holds (``moe_dropless_apply``, below).
 
 The JAX package's dispatch, kept step for step so that the same tokens are
 routed, kept and dropped. Tokens are routed locally per data-parallel
@@ -19,6 +21,8 @@ no routed output (the shared expert still sees them).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +31,7 @@ from repro_torch.sharding.dtensor import (apply_spec, dp_spec, fsdp_gather,
 from repro_torch.nn.init import lecun_normal, normal_init
 from repro_torch.nn.mlp import ACTS, mlp_apply, mlp_init
 from repro_torch.sharding.rules import MOE_EP_DATA
+from repro_torch.trace import COUNTERS, span
 
 
 def moe_init(gen, d_model, d_ff, num_experts, *, shared_expert=True,
@@ -225,3 +230,160 @@ def router_load_balance_loss(router_logits, expert_id, num_experts):
     p_e = probs.mean(dim=0)                                   # (E,)
     f_e = F.one_hot(expert_id.long(), num_experts).float().mean(dim=0)
     return num_experts * torch.sum(f_e * p_e)
+
+
+# --------------------------------------------------------------------------
+# dropless sigmoid top-k over the held experts (afmoe; TorchTitan's
+# token-choice MoE with ``score_func="sigmoid"``)
+#
+#   s = sigmoid(h @ w_router)                  f32, over all E experts
+#   I = top_k(s + b)                           b: the expert bias, no grad
+#   w = s_I / (sum s_I + 1e-20) * route_scale
+#   y = sum_{j in I, j held} w_j * SwiGLU_j(h) + SwiGLU_shared(h)
+#
+# Expert parallelism's share: the layer holds the weights of the experts
+# ``[offset, offset + count)`` and computes only the token-slots routed to
+# them; what the other experts would add is left out (their devices add
+# it), and so is the router's gradient, which would need them: the
+# weights are taken as values. A gradient from the held experts alone
+# would drive the router away from them (their slots alone add an
+# output), and their load with it. Steps: route; sort the held
+# token-slots by expert (one stable sort of all slots, the others keyed
+# past the end) and gather their rows; the experts' SwiGLU as grouped
+# products over per-expert row offsets kept on the device; scale by w and
+# scatter-add back by token. The held rows' count, which sizes the
+# buffer, is the call's one read of the device by the host.
+
+_ROUTES = []
+
+
+class RoutingRecord:
+    """What the dropless MoE calls inside ``record_routing`` routed, in
+    call order: ``counts``, each call's token-slots per expert (E,)
+    int64; with ``keep_choices``, ``choices``, each call's experts per
+    token (T, k)."""
+
+    def __init__(self, keep_choices=False):
+        self.keep_choices = keep_choices
+        self.counts, self.choices = [], []
+
+
+@contextlib.contextmanager
+def record_routing(keep_choices=False):
+    """Record the routing of every dropless MoE call made inside the
+    block (the forward's calls only, when the backward, and with it any
+    recompute, runs after the block)."""
+    rec = RoutingRecord(keep_choices)
+    _ROUTES.append(rec)
+    try:
+        yield rec
+    finally:
+        _ROUTES.remove(rec)
+
+
+def moe_dropless_init(gen, d_model, d_ff, num_experts, *, held=None,
+                      shared_expert=True, dtype=torch.float32):
+    """Router (f32, all ``num_experts`` outputs), the expert bias (f32
+    zeros, a non-gradient leaf), the held experts' stacked SwiGLU weights
+    ``wi``, ``wg`` (E_held, d, f) and ``wo`` (E_held, f, d), and the
+    shared expert."""
+    n = num_experts if held is None else held[1]
+    w = normal_init(gen, (d_model, num_experts), stddev=0.02,
+                    dtype=torch.float32)
+    p = {"router": {"w": w},
+         "expert_bias": torch.zeros(num_experts, dtype=torch.float32,
+                                    device=w.device)}
+    for k, shape in (("wi", (n, d_model, d_ff)), ("wg", (n, d_model, d_ff)),
+                     ("wo", (n, d_ff, d_model))):
+        p[k] = lecun_normal(gen, shape, dtype=dtype, in_axis=1, out_axis=2)
+    if shared_expert:
+        p["shared"] = mlp_init(gen, d_model, d_ff, gated=True, dtype=dtype)
+    return p
+
+
+def route_topk(h, w_router, bias, top_k, *, route_scale=1.0):
+    """Sigmoid scores in f32, the top-k experts of ``scores + bias`` and
+    their weights, normalised to sum 1 and scaled: ``(idx (T, k),
+    weights (T, k) f32)``."""
+    scores = torch.sigmoid(h.float() @ w_router.float())
+    sel = scores if bias is None else scores + bias.detach().float()
+    idx = torch.topk(sel, top_k, dim=-1).indices
+    w = scores.gather(-1, idx)
+    return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * route_scale
+
+
+def _grouped_swiglu(xs, wi, wg, wo, counts, offs, act):
+    """Each held expert's SwiGLU over its run of rows of ``xs`` (rows
+    sorted by expert, ``counts`` a run, ``offs`` their inclusive
+    cumsum): grouped products on the card, a loop over the runs on the
+    CPU."""
+    if xs.is_cuda:
+        h = torch._grouped_mm(xs, wi, offs=offs)
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        return torch._grouped_mm(ACTS[act](g) * h, wo, offs=offs)
+    outs = [ACTS[act](x @ wg[e]) * (x @ wi[e]) @ wo[e] for e, x in
+            enumerate(torch.split(xs, counts.tolist()))]
+    return torch.cat(outs) if outs else xs.new_zeros((0, wo.shape[-1]))
+
+
+def moe_dropless_apply(params, x, *, num_experts, top_k, held=None,
+                       route_scale=1.0, act="silu"):
+    """x: (B, S, d). Returns ``(y, aux)``: y (B, S, d) in x's dtype, the
+    held experts' weighted outputs plus the shared expert's (where some
+    experts are not held, the weights as values: no gradient reaches the
+    router); aux the call's token-slots per expert ``counts`` (E,) over
+    every expert and each token's experts ``expert_id`` (T, k).
+
+    Counts into ``COUNTERS["moe"]`` (every call, recompute included) and
+    into any open ``record_routing``."""
+    B, S, d = x.shape
+    T, E = B * S, num_experts
+    lo, n = (0, E) if held is None else held
+    xt = x.reshape(T, d)
+    with span("moe.route"):
+        idx, w = route_topk(xt, params["router"]["w"],
+                            params.get("expert_bias"), top_k,
+                            route_scale=route_scale)
+        if n < E:
+            w = w.detach()
+        flat = idx.reshape(-1)
+        counts = torch.zeros(E, dtype=torch.int64, device=x.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat))
+    with span("moe.dispatch"):
+        local = flat - lo
+        key = torch.where((local >= 0) & (local < n), local,
+                          torch.full_like(local, n))
+        order = torch.argsort(key, stable=True)
+        held_counts = counts[lo:lo + n]
+        rows = int(held_counts.sum())       # the call's one host read
+        order = order[:rows]
+        tok = order // top_k
+        xs = xt.index_select(0, tok)
+        offs = torch.cumsum(held_counts, 0).to(torch.int32)
+    with span("moe.experts"):
+        out = _grouped_swiglu(xs, params["wi"], params["wg"], params["wo"],
+                              held_counts, offs, act)
+    with span("moe.combine"):
+        ws = w.reshape(-1).index_select(0, order)
+        y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+        y = y.index_add(0, tok, out.float() * ws[:, None])
+        if "shared" in params:
+            y = y + mlp_apply(params["shared"], xt, act=act).float()
+        y = y.to(x.dtype).reshape(B, S, d)
+    c = COUNTERS["moe"]
+    c["calls"] += 1
+    c["tokens"] += T
+    c["held_rows"] += rows
+    for rec in _ROUTES:
+        rec.counts.append(counts)
+        if rec.keep_choices:
+            rec.choices.append(idx)
+    return y, {"counts": counts, "expert_id": idx}
+
+
+def expert_bias_step(bias, counts, rate):
+    """The aux-loss-free balance step: ``b + rate * sign(mean(c) - c)``,
+    ``c`` the step's token-slots per expert (the last dim), the mean over
+    the experts."""
+    c = counts.float()
+    return bias + rate * torch.sign(c.mean(dim=-1, keepdim=True) - c)

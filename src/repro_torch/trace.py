@@ -33,6 +33,21 @@ The spans of the single-device SFPL step (``core/round.py``,
 * ``bn.act``: a BatchNorm's normalise, affine and ReLU (K2 or plain),
   and with the training op, the op itself, whose backward it is charged.
 
+``collector.permute`` also marks the split LM's shuffle at the cut
+(``models/common.py::take_rows`` through K1 on the card). The spans of
+the transformer family's layers (``nn/moe.py``, ``nn/attention.py``):
+
+* ``attn.core``: the attention core of every path (``xla``, ``kernel``,
+  ``flex``): the scores, the softmax and the values' sum, without the
+  projections;
+* ``moe.route``: the dropless MoE's router, its top-k, the weights'
+  norm and scale, and the per-expert counts;
+* ``moe.dispatch``: the sort of the held token-slots by expert, the
+  host's read of their count, and the gather of their rows;
+* ``moe.experts``: the held experts' grouped products;
+* ``moe.combine``: the weighted scatter back by token and the shared
+  expert's add.
+
 ``COUNTERS`` is the one registry of counters, groups of named integers
 that only grow until ``reset()``:
 
@@ -44,7 +59,13 @@ that only grow until ``reset()``:
   counted beside their launches (``kernels.BYTES``);
 * ``COUNTERS["sfpl"]``: ``steps`` of ``sfpl_round``, and
   ``permuted_bytes``, the float payload bytes the collector gathered
-  forward (the backward de-shuffle moves as many again).
+  forward (the backward de-shuffle moves as many again);
+* ``COUNTERS["moe"]``: the dropless MoE's forward calls, recompute
+  included (a layer under remat counts twice a step): ``calls``;
+  ``tokens``, the tokens they routed; ``held_rows``, the token-slots
+  routed to held experts, the rows the grouped products ran. Their
+  ratio against ``tokens * top_k * held / experts`` is the held
+  experts' load against an even share.
 """
 from __future__ import annotations
 
@@ -57,7 +78,8 @@ from torch.autograd import profiler as _profiler
 _OFF = contextlib.nullcontext()
 
 COUNTERS = {"launches": {}, "bytes": {},
-            "sfpl": {"steps": 0, "permuted_bytes": 0}}
+            "sfpl": {"steps": 0, "permuted_bytes": 0},
+            "moe": {"calls": 0, "tokens": 0, "held_rows": 0}}
 
 
 def span(name):
